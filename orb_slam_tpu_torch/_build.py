@@ -1,0 +1,96 @@
+"""Build and load the hand-written CUDA kernels of csrc/.
+
+Each kernel source compiles with nvcc into its own shared library with a
+plain C interface, under `_build/`, named by a hash of the source and the
+flags, and is loaded with ctypes at first use (never at import: the CPU
+tests import every module on a host without nvcc). A missing nvcc or a
+failed build raises; nothing falls back.
+
+Each C entry point returns the cudaError_t of its launch, and
+`CudaKernel.__call__` raises if it is not 0. The only mutable state is
+each kernel's `launches` counter, which the wrappers bump once per launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: PATH first, then the toolkit's default prefix."""
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and TOOLKIT_NVCC.exists():
+        nvcc = str(TOOLKIT_NVCC)
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (PATH or /usr/local/cuda/bin)")
+    return nvcc
+
+
+def build_library(source: str) -> Path:
+    """Compile csrc/<source> into _build/ unless a library for the same
+    source text and flags is already there. Returns the library path."""
+    src = CSRC / source
+    text = src.read_bytes()
+    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"{src.stem}-{key[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}"
+                           f"\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+class CudaKernel:
+    """One C entry point of one csrc/ file, built and loaded at first use.
+
+    `argtypes` are ctypes types; every pointer and the stream travel as
+    c_void_p (a bare Python int would be cut to 32 bits)."""
+
+    def __init__(self, source: str, symbol: str, argtypes):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self.build_seconds = None
+        self._fn = None
+        self._lib = None
+
+    def load(self):
+        if self._fn is None:
+            t0 = time.perf_counter()
+            lib = ctypes.CDLL(str(build_library(self.source)))
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = lib.kernel_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._lib, self._fn = lib, fn
+            self.build_seconds = time.perf_counter() - t0
+        return self._fn
+
+    def __call__(self, *args):
+        rc = self.load()(*args)
+        if rc != 0:
+            msg = self._lib.kernel_error_string(rc).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
+        self.launches += 1

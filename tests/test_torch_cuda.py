@@ -1,0 +1,138 @@
+"""The CUDA kernels against their plain versions at more shapes than the
+main path's, and the port's main path on the card against itself on the
+CPU. Needs a CUDA device and nvcc; skipped without a card. On the GPU
+machine: `python -m pytest tests/test_torch_cuda.py -q -m cuda`.
+
+Tolerances: K1 is bit-exact (min/max of exact differences); K2 holds the
+JAX kernel test's bounds (pose atol 1e-4, at most max(2, 1%) inlier
+flips); the whole path on the card and on the CPU sums in different
+orders, so poses agree to 1e-3 and at least 98% of keypoints are equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from orb_slam_tpu_torch.frontend.orb_extractor import ORBConfig, ORBExtractor
+from orb_slam_tpu_torch.geometry.camera import CameraModel
+from orb_slam_tpu_torch.io.synthetic import SyntheticScene, lateral_trajectory, seed_map
+from orb_slam_tpu_torch.ops import fast_score_nms as k1
+from orb_slam_tpu_torch.ops.fast_stack import build_pyramid_stack, pyramid_matrices
+from orb_slam_tpu_torch.ops.image import pyramid_shapes
+from orb_slam_tpu_torch.pipeline.chunk import extract_track_chunk
+from orb_slam_tpu_torch.slam_map.map_state import MapConfig
+from orb_slam_tpu_torch.solvers import pose_opt as k2
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def canvas(h, w, levels, seed, quantize):
+    scene = SyntheticScene(n_points=300, width=w, height=h, fx=w * 0.78,
+                           fy=w * 0.78, cx=w / 2, cy=h / 2, seed=seed)
+    img = torch.from_numpy(scene.render_image(lateral_trajectory(2)[1],
+                                              quantize=quantize))
+    Rp, Cp = pyramid_matrices(h, w, levels, 1.2)
+    stack = build_pyramid_stack(img, torch.from_numpy(Rp), torch.from_numpy(Cp))
+    return stack, pyramid_shapes(h, w, levels, 1.2)
+
+
+@pytest.mark.parametrize("h,w,levels,border,quantize", [
+    (480, 640, 8, 16, True), (128, 256, 4, 16, False), (241, 319, 3, 16, False),
+    (100, 90, 2, 3, True)])
+def test_k1_equals_plain(dev, h, w, levels, border, quantize):
+    stack, shapes = canvas(h, w, levels, 1, quantize)
+    stack = stack.to(dev)
+    before = k1.KERNEL.launches
+    got = k1.fast_score_nms(stack, shapes, border=border)
+    assert k1.KERNEL.launches == before + 1
+    want = k1.fast_score_nms_plain(stack, shapes, border=border)
+    for l, (lh, lw) in enumerate(shapes):
+        assert torch.equal(got[l, :lh, :lw], want[l, :lh, :lw]), l
+
+
+def test_k1_rejects_bad_input(dev):
+    stack, shapes = canvas(128, 256, 4, 0, False)
+    with pytest.raises(ValueError):
+        k1.fast_score_nms(stack.to(dev).double(), shapes)
+    with pytest.raises(ValueError):
+        k1.fast_score_nms(stack.to(dev).transpose(1, 2), shapes)
+    with pytest.raises(ValueError):
+        k1.fast_score_nms(stack.to(dev), shapes[:-1])
+
+
+def gn_fixture(N, seed, dev):
+    """The outlier fixture of tests/test_solvers.py:220-234, started 2 cm
+    off the true pose (as a motion-model prediction would be)."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-3, 3, N), rng.uniform(-2, 2, N),
+                    rng.uniform(4, 10, N)], 1).astype(np.float32)
+    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
+    pc = pts + np.float32([0.1, -0.05, 0.02])
+    uv = (pc[:, :2] / pc[:, 2:3]) * 500.0 + [320, 240]
+    uv = (uv + rng.normal(0, 1.0, (N, 2))).astype(np.float32)
+    uv[::7] += rng.normal(0, 40, uv[::7].shape).astype(np.float32)
+    valid = rng.random(N) > 0.1
+    inv_s2 = (1.0 / 1.2 ** (2 * rng.integers(0, 8, N))).astype(np.float32)
+    T0 = torch.eye(4)
+    T0[:3, 3] = torch.tensor([0.08, -0.04, 0.015])
+    return [t.to(dev) for t in (T0, torch.from_numpy(pts),
+                                torch.from_numpy(uv), torch.from_numpy(inv_s2),
+                                torch.from_numpy(valid), torch.from_numpy(K))]
+
+
+@pytest.mark.parametrize("N", [37, 300, 1000, 4096])
+@pytest.mark.parametrize("iters", [(4, 3, 2, 2), (10, 10, 7, 5), (0, 2, 0, 1)])
+def test_k2_equals_plain(dev, N, iters):
+    args = gn_fixture(N, N, dev)
+    before = k2.KERNEL.launches
+    T, inl, n = k2.pose_optimize(*args, iters=iters)
+    assert k2.KERNEL.launches == before + 1
+    Tp, inlp = k2.pose_gn_plain(*args, iters=iters)
+    torch.testing.assert_close(T, Tp, atol=1e-4, rtol=0)
+    assert int((inl != inlp).sum()) <= max(2, N // 100)
+    assert int(n) == int(inl.sum())
+
+
+def test_k2_rejects_bad_input(dev):
+    args = gn_fixture(64, 0, dev)
+    bad = list(args)
+    bad[2] = args[2].double()
+    with pytest.raises(ValueError):
+        k2.pose_optimize(*bad)
+    bad = list(args)
+    bad[1] = args[1][:32]
+    with pytest.raises(ValueError):
+        k2.pose_optimize(*bad)
+
+
+def test_main_path_on_card_matches_cpu(dev):
+    W, H = 320, 240
+    scene = SyntheticScene(n_points=400, width=W, height=H, fx=250.0, fy=250.0,
+                           cx=160.0, cy=120.0)
+    poses = lateral_trajectory(4, step=0.01)
+    imgs = torch.from_numpy(np.stack([scene.render_image(p) for p in poses]))
+    cam = CameraModel(250.0, 250.0, 160.0, 120.0, width=W, height=H)
+    outs = {}
+    for d in ("cpu", dev):
+        ex = ORBExtractor(ORBConfig(n_features=300, n_levels=4), H, W).to(d)
+        f0 = ex(imgs[0].to(d))
+        state = seed_map(scene, poses[0], f0.xy, f0.desc_i32, f0.octave, f0.valid,
+                         MapConfig(max_keyframes=8, max_points=1024, n_features=300,
+                                   n_levels=4), device=d, n_extra=500)
+        outs[str(d)] = extract_track_chunk(
+            imgs[1:].to(d), ex, cam, state, torch.from_numpy(poses[0]).to(d),
+            torch.eye(4, device=d), torch.from_numpy(scene.K).to(d), p_local=1024)
+    (fc, _, cc), (fg, _, cg) = outs["cpu"], outs[str(dev)]
+    same = (fg.xy.cpu() == fc.xy).all(-1).float().mean()
+    assert same >= 0.98, same
+    torch.testing.assert_close(cg.pose.cpu(), cc.pose, atol=1e-3, rtol=0)
+    assert (cg.n_inliers.cpu() - cc.n_inliers).abs().max() <= 6
