@@ -1,33 +1,56 @@
-"""Smoke run of the PyTorch port on one CUDA card: builds both hand-written
-kernels, holds each against its plain PyTorch version at main-path shapes,
-then drives the port's extract-and-track main path over 64 frames.
+"""Smoke run of the PyTorch port on one CUDA card: builds the four
+hand-written kernels, holds each against its plain PyTorch version at
+main-path shapes, then drives the port's three detection paths over 64
+frames: the FAST extract-and-track main path, the Harris
+(nScoreType=0) extract-and-track path built from a settings file, and the
+cell-fused detector.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the exit code is non-zero):
   1. device: a CUDA card is required; prints `nvidia-smi` name and power
      limit;
-  2. build: compiles csrc/fast_score_nms.cu (K1) and csrc/pose_gn.cu (K2);
-  3. kernel vs plain on the card: K1 on the [8, 480, 640] canvas of a
-     rendered frame, equal inside every level; K2 on 1024 rows with
+  2. build: compiles csrc/fast_score_nms.cu (K1), csrc/pose_gn.cu (K2),
+     csrc/fast_score_rect.cu (K3) and csrc/fast_cell_topk.cu (K4), one
+     nvcc each, all at once;
+  3. kernel vs plain on the card, with CUDA-event times of both (events
+     around a run of launches):
+     K1, K3 and K4 on the [8, 480, 640] canvas of a rendered frame, K1
+     equal inside every level, K3 equal over the whole canvas (score and
+     keep), K4 equal in values and packed positions; K2 on 1024 rows with
      outliers, pose within 1e-4 and at most max(2, 1%) inlier flips;
-     median times of both versions from CUDA events;
-  4. small input: the main path on the card against the port's plain
+  4. small input: the FAST main path on the card against the port's plain
      path on the CPU, 3 frames at 320x240;
-  5. main path: 640x480, ORBConfig() (1000 features, 8 levels), an
+  5. FAST main path: 640x480, ORBConfig() (1000 features, 8 levels), an
      8192-slot map seeded from frame 0, p_local 4096, radius 15, motion
      model on, retry off (bench.py:46-105); checks that the path never
-     synchronizes with the device, that both kernels ran once per frame,
-     that every frame tracks with >= 30 inliers and the pose error bound
-     below; then times three windows (median).
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.
+     synchronizes with the device, that K1 and K2 ran once per frame and
+     K3 and K4 never, that every frame tracks with >= 30 inliers and the
+     pose error bound below;
+  6. Harris path: the same scene and map size, with camera, extractor
+     (nScoreType 0, 1000 features, 8 levels, fastTh 20) and motion model
+     read by io/settings.py from a settings file written to a temporary
+     directory; the map seeded from the Harris extractor's frame 0; the
+     same checks with K3 and K2 once per frame and K1 never;
+  7. cell-fused detector: DetectCellsFused on each frame's [8, 480, 640]
+     canvas, with no host sync and K4 once per frame; its output shapes
+     equal the stacked detector's, and the share of its keypoints that
+     the FAST path also selects is printed;
+  8. timing of both tracking paths as bench.py: a warmup window each,
+     then the median of 3 windows each, the paths in turns (F H H F F H).
+Each path's launch counts are set to 0 just before it runs and read just
+after. The last three lines are the kernel table as JSON (launches from
+the path that runs the kernel: K1 and K2 the FAST path, K3 the Harris
+path, K4 the cell-fused run), the card's name and power limit, and
+{"ok": true, "device": ...}.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -41,6 +64,23 @@ MIN_INLIERS = 30
 # the bound leaves the same margin to the map's own back-projection error.
 MAX_CENTER_ERR = 0.05
 
+# Published H100 SXM peaks (NVIDIA data sheet) for the bound of each
+# kernel: the larger of bytes / memory rate and operations / f32 rate.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Reckoned operations per pixel: the FAST score at its leanest (16
+# differences, the circular 9-window min and max by van Herk / Gil-Werman
+# at 44 each, 15 + 15 to combine the 16 arcs, 1 final max = 135), the 3x3
+# NMS (8 max + 1 compare) and the border mask (4 compares + 1 select).
+FAST_SCORE_OPS = 16 + 2 * 44 + 2 * 15 + 1
+NMS_OPS = 9
+MASK_OPS = 5
+# K4's top-K round per cell pixel: max, two compares, select, min, zeroing
+TOPK_ROUND_OPS = 6
+# K2 per row and Gauss-Newton iteration: projection, residual, Huber
+# weight, Jacobian and the 27 weighted sums of the normal equations
+GN_OPS_PER_ROW_ITER = 150
+
 
 def device_line() -> str:
     out = subprocess.run(
@@ -49,20 +89,31 @@ def device_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=30):
-    """Median device time of fn() over reps launches (CUDA events)."""
+def cuda_ms(fn, reps=30, trials=3):
+    """Device time of one fn() in ms: CUDA events around `reps` launches in a
+    row, over the count; the median of `trials` such runs, after a warmup.
+    Back to back, the device does not wait for the host between launches
+    unless the host is slower than the kernel."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(trials):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def bound_ms(n_bytes, n_ops):
+    """(least time in ms, what sets it) for the given bytes and f32 ops."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def center(T):
@@ -89,7 +140,9 @@ def check_k1(canvas, shapes):
         err = max(err, float((a - b).abs().max()))
     ms = cuda_ms(lambda: fast_score_nms(canvas, shapes))
     plain_ms = cuda_ms(lambda: fast_score_nms_plain(canvas, shapes), reps=10)
-    return err, ms, plain_ms
+    px = sum(h * w for h, w in shapes)
+    bound = bound_ms(8 * px, px * (FAST_SCORE_OPS + NMS_OPS + MASK_OPS))
+    return err, ms, plain_ms, bound
 
 
 def check_k2(dev):
@@ -126,7 +179,58 @@ def check_k2(dev):
         raise AssertionError("K2 inlier count disagrees with its mask")
     ms = cuda_ms(lambda: pose_optimize(*args, iters=iters))
     plain_ms = cuda_ms(lambda: pose_gn_plain(*args, iters=iters), reps=10)
-    return err, ms, plain_ms
+    # inputs: T, K, 3D points, uv, 1/sigma^2, valid; outputs: T, mask, count
+    n_bytes = 64 + 36 + N * (12 + 8 + 4 + 1) + 64 + N + 4
+    bound = bound_ms(n_bytes, sum(iters) * N * GN_OPS_PER_ROW_ITER)
+    return err, ms, plain_ms, bound
+
+
+def check_k3(canvas):
+    from orb_slam_tpu_torch.ops.fast_score_rect import (
+        fast_score_nms_rect, fast_score_nms_rect_plain,
+    )
+
+    score, keep = fast_score_nms_rect(canvas)
+    p_score, p_keep = fast_score_nms_rect_plain(canvas)
+    torch.cuda.synchronize()
+    if not (torch.equal(score, p_score) and torch.equal(keep, p_keep)):
+        raise AssertionError(
+            f"K3 differs from plain: {int((score != p_score).sum())} scores, "
+            f"{int((keep != p_keep).sum())} keep flags")
+    err = float((score - p_score).abs().max())
+    ms = cuda_ms(lambda: fast_score_nms_rect(canvas))
+    plain_ms = cuda_ms(lambda: fast_score_nms_rect_plain(canvas), reps=10)
+    px = canvas.numel()       # every canvas pixel: read, score and keep out
+    bound = bound_ms(px * (4 + 4 + 1), px * (FAST_SCORE_OPS + NMS_OPS))
+    return err, ms, plain_ms, bound
+
+
+def check_k4(canvas, shapes):
+    from orb_slam_tpu_torch.ops.fast_cell_topk import (
+        cell_block_table, fast_cell_topk, fast_cell_topk_plain,
+    )
+
+    vals, pos = fast_cell_topk(canvas, shapes)
+    p_vals, p_pos = fast_cell_topk_plain(canvas, shapes)
+    torch.cuda.synchronize()
+    if not (torch.equal(vals, p_vals) and torch.equal(pos, p_pos)):
+        raise AssertionError(
+            f"K4 differs from plain: {int((vals != p_vals).sum())} values, "
+            f"{int((pos != p_pos).sum())} positions")
+    err = float((vals - p_vals).abs().max())
+    ms = cuda_ms(lambda: fast_cell_topk(canvas, shapes))
+    plain_ms = cuda_ms(lambda: fast_cell_topk_plain(canvas, shapes), reps=10)
+    # bytes: the canvas pixels the strips cover, read once, and the outputs;
+    # operations: every strip pixel, canvas edge padding included
+    lvl, r0s, c0s = cell_block_table(shapes, 32, 256, 16)
+    H, W = canvas.shape[1:]
+    covered = sum((min(r + 32, H) - r) * (min(c + 256, W) - c)
+                  for r, c in zip(r0s, c0s))
+    n_px = len(lvl) * 32 * 256
+    bound = bound_ms(4 * covered + vals.numel() * 8,
+                     n_px * (FAST_SCORE_OPS + NMS_OPS + MASK_OPS
+                             + 4 * TOPK_ROUND_OPS))
+    return err, ms, plain_ms, bound, tuple(vals.shape)
 
 
 def check_small_input(dev):
@@ -150,7 +254,7 @@ def check_small_input(dev):
     camera = CameraModel(250.0, 250.0, 160.0, 120.0, width=W, height=H)
     outs = []
     for d in (torch.device("cpu"), dev):
-        ex = ORBExtractor(ORBConfig(n_features=300, n_levels=4), H, W).to(d)
+        ex = ORBExtractor(ORBConfig(n_features=300, n_levels=4), H, W, device=d)
         f0 = ex(imgs[0].to(d))
         state = seed_map(scene, poses[0], f0.xy, f0.desc_i32, f0.octave, f0.valid,
                          MapConfig(max_keyframes=8, max_points=1024,
@@ -178,122 +282,211 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from orb_slam_tpu_torch import _build
     from orb_slam_tpu_torch.frontend.orb_extractor import ORBConfig, ORBExtractor
     from orb_slam_tpu_torch.geometry.camera import CameraModel
+    from orb_slam_tpu_torch.io.settings import (
+        settings_text, slam_config_from_settings,
+    )
     from orb_slam_tpu_torch.io.synthetic import (
         SyntheticScene, lateral_trajectory, seed_map,
     )
+    from orb_slam_tpu_torch.ops import fast_cell_topk as k4
     from orb_slam_tpu_torch.ops import fast_score_nms as k1
-    from orb_slam_tpu_torch.ops.fast_stack import build_pyramid_stack
+    from orb_slam_tpu_torch.ops import fast_score_rect as k3
+    from orb_slam_tpu_torch.ops.fast_stack import (
+        DetectCellsFused, build_pyramid_stack, detect_keypoints_packed,
+    )
     from orb_slam_tpu_torch.pipeline.chunk import extract_track_chunk
     from orb_slam_tpu_torch.slam_map.map_state import MapConfig
     from orb_slam_tpu_torch.solvers import pose_opt as k2
 
-    # -- build
-    t0 = time.perf_counter()
-    k1.KERNEL.load()
-    k2.KERNEL.load()
-    print(f"build: K1 {k1.KERNEL.build_seconds:.2f} s, K2 "
-          f"{k2.KERNEL.build_seconds:.2f} s, total "
-          f"{time.perf_counter() - t0:.2f} s")
+    kernels = {"K1": k1.KERNEL, "K2": k2.KERNEL, "K3": k3.KERNEL, "K4": k4.KERNEL}
 
-    # -- scene, extractor, map
+    # -- build: one nvcc per source, all started together
+    t0 = time.perf_counter()
+    _build.build_libraries([k.source for k in kernels.values()])
+    for k in kernels.values():
+        k.load()
+    print(f"build: {', '.join(k.source for k in kernels.values())} in "
+          f"{time.perf_counter() - t0:.2f} s (parallel nvcc, then load)")
+
+    def run_counted(fn):
+        """fn() with every launch count set to 0 just before and read just
+        after, under the no-host-sync guard."""
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return out, {name: k.launches for name, k in kernels.items()}
+
+    def expect_launches(path, got, want):
+        if got != want:
+            raise AssertionError(f"{path}: launches {got}, expected {want}")
+
+    # -- scene, extractors, map
     W, H = 640, 480
     scene = SyntheticScene(n_points=800, width=W, height=H)
     poses = lateral_trajectory(N_FRAMES + 1, step=0.01)
     frames = torch.from_numpy(np.stack([scene.render_image(p) for p in poses]))
     frames = frames.to(dev)
-    extractor = ORBExtractor(ORBConfig(), H, W).to(dev)
+    extractor = ORBExtractor(ORBConfig(), H, W, device=dev)
     camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy, width=W, height=H)
     K = torch.from_numpy(scene.K).to(dev)
 
     # -- kernel vs plain at main-path shapes
     canvas = build_pyramid_stack(frames[0], extractor.Rp, extractor.Cp)
-    k1_err, k1_ms, k1_plain_ms = check_k1(canvas, extractor.shapes)
-    print(f"K1 fast_score_nms: bit-equal to plain on {list(canvas.shape)}; "
-          f"kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms")
-    k2_err, k2_ms, k2_plain_ms = check_k2(dev)
-    print(f"K2 pose_gn: max |dT| {k2_err:.3g} vs plain at 1024 rows; "
-          f"kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms")
+    checks = {"K1": check_k1(canvas, extractor.shapes), "K2": check_k2(dev),
+              "K3": check_k3(canvas), "K4": check_k4(canvas, extractor.shapes)}
+    print(f"K1 fast_score_nms: bit-equal to plain inside every level of "
+          f"{list(canvas.shape)}")
+    print(f"K2 pose_gn: max |dT| {checks['K2'][0]:.3g} vs plain at 1024 rows")
+    print(f"K3 fast_score_rect: score and keep bit-equal to plain over the "
+          f"whole {list(canvas.shape)} canvas")
+    print(f"K4 fast_cell_topk: values and positions bit-equal to plain, "
+          f"output {list(checks['K4'][4])}")
+    for name, c in checks.items():
+        print(f"{name}: kernel {c[1]:.4f} ms, plain {c[2]:.4f} ms, bound "
+              f"{c[3][0] * 1e3:.2f} us ({c[3][1]}) on {card}")
 
     same, err = check_small_input(dev)
     print(f"small input (320x240, 3 frames): card vs CPU plain path: "
           f"{same:.4f} of keypoints equal, poses within {err:.3g}")
 
-    # -- main path
-    f0 = extractor(frames[0])
-    state = seed_map(scene, poses[0], f0.xy, f0.desc_i32, f0.octave, f0.valid,
-                     MapConfig(max_keyframes=64, max_points=8192,
-                               n_features=1000), device=dev)
-    n_seed = int(state.pt_valid.sum())
     pose0 = torch.from_numpy(poses[0]).to(dev)
     vel0 = torch.eye(4, device=dev)
-
-    def run(imgs):
-        return extract_track_chunk(
-            imgs, extractor, camera, state, pose0, vel0, K, p_local=4096,
-            radius=15.0, min_inliers=MIN_INLIERS, use_motion_model=True,
-            max_dist=100)
-
-    torch.cuda.synchronize()
-    k1.KERNEL.launches = 0
-    k2.KERNEL.launches = 0
-    # the path must never wait for the device: any synchronizing call raises
-    torch.cuda.set_sync_debug_mode("error")
-    feats, xy_und, chunk = run(frames[1:])
-    torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    launches = {"K1": k1.KERNEL.launches, "K2": k2.KERNEL.launches}
-    for name, n in launches.items():
-        if n < N_FRAMES:
-            raise AssertionError(f"{name} launched {n} times over {N_FRAMES} frames")
-    n_in = chunk.n_inliers.cpu()
-    if feats.xy.shape != (N_FRAMES, 1000, 2) or not torch.isfinite(chunk.pose).all():
-        raise AssertionError("main path returned malformed features or poses")
-    if int(n_in.min()) < MIN_INLIERS:
-        raise AssertionError(f"frames under {MIN_INLIERS} inliers: {n_in.tolist()}")
     gt = torch.from_numpy(poses[1:]).to(dev)
-    c_err = (center(chunk.pose) - center(gt)).norm(dim=-1).cpu()
-    if float(c_err.max()) > MAX_CENTER_ERR:
-        raise AssertionError(f"camera centre error {float(c_err.max()):.4f} "
-                             f"> {MAX_CENTER_ERR}")
-    print(f"main path: map {n_seed} points, inliers min {int(n_in.min())} "
-          f"median {int(n_in.median())}, matches median "
-          f"{int(chunk.n_matches.median())}, centre error max "
-          f"{float(c_err.max()):.4f} mean {float(c_err.mean()):.4f}, "
-          f"launches {launches}")
 
-    # timing as bench.py: a warmup window, then the median of 3 windows,
-    # each on frames shifted by a small intensity step so no frame repeats
-    def window(wi):
-        imgs = frames[1:] + 0.31 * wi
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = run(imgs)
-        torch.cuda.synchronize()
-        float(out[2].pose.sum())
-        return time.perf_counter() - t
+    def track_path(name, ex, cam, use_motion_model):
+        """Seed a map from ex's frame 0, run the 64 frames counted and
+        checked. Returns (launches, a function timing one window)."""
+        f0 = ex(frames[0])
+        state = seed_map(scene, poses[0], f0.xy, f0.desc_i32, f0.octave, f0.valid,
+                         MapConfig(max_keyframes=64, max_points=8192,
+                                   n_features=ex.config.n_features), device=dev)
+        n_seed = int(state.pt_valid.sum())
 
-    window(1)
-    dts = [window(100 + wi) for wi in range(3)]
-    dt = statistics.median(dts)
-    print(f"main path timing on {card}: windows "
-          f"{[round(d * 1e3, 2) for d in dts]} ms per {N_FRAMES} frames, "
-          f"median {dt * 1e3 / N_FRAMES:.3f} ms/frame = "
-          f"{N_FRAMES / dt:.2f} frames/s")
+        def run(imgs):
+            return extract_track_chunk(
+                imgs, ex, cam, state, pose0, vel0, K, p_local=4096,
+                radius=15.0, min_inliers=MIN_INLIERS,
+                use_motion_model=use_motion_model, max_dist=100)
 
+        (feats, _, chunk), launches = run_counted(lambda: run(frames[1:]))
+        n_in = chunk.n_inliers.cpu()
+        if (feats.xy.shape != (N_FRAMES, ex.config.n_features, 2)
+                or not torch.isfinite(chunk.pose).all()):
+            raise AssertionError(f"{name}: malformed features or poses")
+        if int(n_in.min()) < MIN_INLIERS:
+            raise AssertionError(f"{name}: frames under {MIN_INLIERS} inliers: "
+                                 f"{n_in.tolist()}")
+        c_err = (center(chunk.pose) - center(gt)).norm(dim=-1).cpu()
+        if float(c_err.max()) > MAX_CENTER_ERR:
+            raise AssertionError(f"{name}: camera centre error "
+                                 f"{float(c_err.max()):.4f} > {MAX_CENTER_ERR}")
+        print(f"{name}: map {n_seed} points, inliers min {int(n_in.min())} "
+              f"median {int(n_in.median())}, matches median "
+              f"{int(chunk.n_matches.median())}, centre error max "
+              f"{float(c_err.max()):.4f} mean {float(c_err.mean()):.4f}, "
+              f"launches {launches}")
+
+        def window(wi):
+            """Seconds for the 64 frames shifted by a small intensity step,
+            so no frame repeats."""
+            imgs = frames[1:] + 0.31 * wi
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run(imgs)
+            torch.cuda.synchronize()
+            float(out[2].pose.sum())
+            return time.perf_counter() - t
+
+        return launches, window
+
+    # -- FAST main path
+    fast_launches, fast_window = track_path("FAST main path", extractor,
+                                            camera, True)
+    expect_launches("FAST main path", fast_launches,
+                    {"K1": N_FRAMES, "K2": N_FRAMES, "K3": 0, "K4": 0})
+
+    # -- Harris path, from a settings file
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "harris.yaml")
+        with open(path, "w") as f:
+            f.write(settings_text(camera, ORBConfig(score_harris=True)))
+        h_cam, h_orb, h_extras = slam_config_from_settings(path)
+    if not h_orb.score_harris or (h_cam.width, h_cam.height) != (W, H):
+        raise AssertionError(f"settings file read as {h_orb}, {h_cam}")
+    harris = ORBExtractor(h_orb, H, W, device=dev)
+    harris_launches, harris_window = track_path(
+        "Harris path", harris, h_cam, h_extras["use_motion_model"])
+    expect_launches("Harris path", harris_launches,
+                    {"K1": 0, "K2": N_FRAMES, "K3": N_FRAMES, "K4": 0})
+
+    # -- cell-fused detector on every frame's canvas
+    cells = DetectCellsFused(extractor.shapes, extractor.quotas, device=dev)
+    stacks = [build_pyramid_stack(f, extractor.Rp, extractor.Cp)
+              for f in frames[1:]]
+    cell_out, cell_launches = run_counted(lambda: [cells(s) for s in stacks])
+    expect_launches("cell-fused run", cell_launches,
+                    {"K1": 0, "K2": 0, "K3": 0, "K4": N_FRAMES})
+    shared, n_fast = 0, 0
+    for s, (xy_c, _, v_c) in zip(stacks, cell_out):
+        xy_f, _, v_f = detect_keypoints_packed(s, extractor.selector)
+        if [t.shape for t in (xy_c, v_c)] != [t.shape for t in (xy_f, v_f)]:
+            raise AssertionError("cell-fused output shapes differ from the "
+                                 "stacked detector's")
+        mark = torch.zeros((len(extractor.shapes), H * W + 1), dtype=torch.bool,
+                           device=dev)
+        lin = lambda xy, v: torch.where(v, xy[..., 1] * W + xy[..., 0], H * W)
+        mark.scatter_(1, lin(xy_f, v_f).long(), True)
+        mark[:, H * W] = False
+        shared += int(torch.gather(mark, 1, lin(xy_c, v_c).long()).sum())
+        n_fast += int(v_f.sum())
+    print(f"cell-fused run: launches {cell_launches}, {shared / n_fast:.4f} of "
+          f"the FAST path's {n_fast / N_FRAMES:.1f} keypoints/frame also "
+          f"selected (not expected to be 1: K=4 per cell caps the pool)")
+
+    # timing as bench.py (a warmup window, then the median of 3 windows),
+    # the two paths in turns: FAST, Harris, Harris, FAST, FAST, Harris
+    windows = {"FAST main path": fast_window, "Harris path": harris_window}
+    dts = {name: [] for name in windows}
+    for name, window in windows.items():
+        window(1)
+    fast, harris = windows
+    for wi, name in enumerate([fast, harris, harris, fast, fast, harris]):
+        dts[name].append(windows[name](100 + wi))
+    for name, ts in dts.items():
+        dt = statistics.median(ts)
+        print(f"{name} timing on {card}: windows "
+              f"{[round(d * 1e3, 2) for d in ts]} ms per {N_FRAMES} frames, "
+              f"median {dt * 1e3 / N_FRAMES:.3f} ms/frame = "
+              f"{N_FRAMES / dt:.2f} frames/s")
+
+    launches = {"K1": fast_launches["K1"], "K2": fast_launches["K2"],
+                "K3": harris_launches["K3"], "K4": cell_launches["K4"]}
+    meta = {
+        "K1": ("fast_score_nms", "orb_slam_tpu_torch/csrc/fast_score_nms.cu",
+               "orb_slam_tpu/ops/pallas_fast.py:121"),
+        "K2": ("pose_gn", "orb_slam_tpu_torch/csrc/pose_gn.cu",
+               "orb_slam_tpu/solvers/pose_opt_pallas.py:113"),
+        "K3": ("fast_score_rect", "orb_slam_tpu_torch/csrc/fast_score_rect.cu",
+               "orb_slam_tpu/ops/pallas_fast.py:32"),
+        "K4": ("fast_cell_topk", "orb_slam_tpu_torch/csrc/fast_cell_topk.cu",
+               "orb_slam_tpu/ops/pallas_fast.py:287"),
+    }
     print(json.dumps({"kernels": [
-        {"name": "fast_score_nms", "route": "cuda",
-         "source": "orb_slam_tpu_torch/csrc/fast_score_nms.cu",
-         "replaces": "orb_slam_tpu/ops/pallas_fast.py:121",
-         "launches": launches["K1"], "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain_ms},
-        {"name": "pose_gn", "route": "cuda",
-         "source": "orb_slam_tpu_torch/csrc/pose_gn.cu",
-         "replaces": "orb_slam_tpu/solvers/pose_opt_pallas.py:113",
-         "launches": launches["K2"], "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain_ms},
-    ]}))
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[k], "max_abs_err": checks[k][0],
+         "ms": checks[k][1], "plain_ms": checks[k][2],
+         "bound_ms": checks[k][3][0], "bound_by": checks[k][3][1],
+         "library_ms": None}
+        for k, (name, source, replaces) in meta.items()]}))
     print(f"device: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

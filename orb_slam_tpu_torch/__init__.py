@@ -5,20 +5,27 @@ the part of it that is ported so far, module for module, and never imports
 JAX. Ported: the extract-and-track main path, i.e. the body of
 orb_slam_tpu/pipeline/system.py:377-408 (`_chunk_extract_track`) that
 bench.py times: ORB extraction, undistortion and tracking against a fixed
-map snapshot, chained through the motion model over a chunk of frames.
+map snapshot, chained through the motion model over a chunk of frames;
+with it the whole ORB extraction layer: FAST or Harris (nScoreType=0)
+ranking, the stacked and the per-level extractor, the cell-fused
+detector, and the settings file that selects them.
 
 Layout (each subpackage mirrors its JAX counterpart):
-  ops/        FAST, pyramid, selection, descriptors, matching; kernel K1
+  ops/        FAST, Harris, pyramid, selection, descriptors, matching;
+              kernels K1 (fast_score_nms), K3 (fast_score_rect), K4
+              (fast_cell_topk)
   frontend/   ORBExtractor (an nn.Module)
   geometry/   SO3/SE3 maps, camera model
   slam_map/   MapState (a dataclass of tensors)
   solvers/    pose-only Gauss-Newton; kernel K2
   pipeline/   per-frame tracking and the fused extract+track chunk
-  io/         numpy-only synthetic scene
+  io/         numpy-only synthetic scene, settings files
   csrc/       the hand-written CUDA kernels, built by _build.py
+  device.py   the default device of the entry points: the CUDA card
 
 Every kernel wrapper launches its CUDA kernel for a CUDA tensor and runs
-its plain PyTorch version only for a CPU tensor.
+its plain PyTorch version only for a CPU tensor. Every entry point that
+builds tensors builds them on the card unless told otherwise.
 """
 
 __version__ = "0.1.0"

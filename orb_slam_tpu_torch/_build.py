@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of csrc/.
 
 Each kernel source compiles with nvcc into its own shared library with a
-plain C interface, under `_build/`, named by a hash of the source and the
-flags, and is loaded with ctypes at first use (never at import: the CPU
-tests import every module on a host without nvcc). A missing nvcc or a
-failed build raises; nothing falls back.
+plain C interface, under `_build/`, named by a hash of the source, the
+shared headers of csrc/ and the flags, and is loaded with ctypes at first
+use (never at import: the CPU tests import every module on a host without
+nvcc). `build_libraries` compiles several sources at once, one nvcc
+process each. A missing nvcc or a failed build raises; nothing falls back.
 
 Each C entry point returns the cudaError_t of its launch, and
 `CudaKernel.__call__` raises if it is not 0. The only mutable state is
@@ -39,24 +40,47 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def library_path(source: str) -> Path:
+    """_build/<stem>-<hash>.so for csrc/<source>; the hash covers the
+    source, every header of csrc/ and the flags."""
+    src = CSRC / source
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{src.stem}-{key[:16]}.so"
+
+
+def build_libraries(sources) -> dict:
+    """Compile each csrc/<source> that has no library in _build/ yet, all
+    nvcc processes at once. Returns {source: library path}."""
+    outs = {s: library_path(s) for s in sources}
+    todo = {s: o for s, o in outs.items() if not o.exists()}
+    if todo:
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for s, out in todo.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)]
+            procs[s] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.PIPE, text=True),
+                        tmp)
+        failed = []
+        for s, (proc, tmp) in procs.items():
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {s}:\n{stdout}\n{stderr}")
+            else:
+                os.replace(tmp, todo[s])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return outs
+
+
 def build_library(source: str) -> Path:
     """Compile csrc/<source> into _build/ unless a library for the same
     source text and flags is already there. Returns the library path."""
-    src = CSRC / source
-    text = src.read_bytes()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"{src.stem}-{key[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}"
-                           f"\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return build_libraries([source])[source]
 
 
 class CudaKernel:

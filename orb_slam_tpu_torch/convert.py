@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from orb_slam_tpu_torch.device import require_device
 from orb_slam_tpu_torch.frontend.orb_extractor import ORBConfig
 from orb_slam_tpu_torch.geometry.camera import CameraModel
 from orb_slam_tpu_torch.slam_map.map_state import MapState
@@ -21,8 +22,10 @@ from orb_slam_tpu_torch.slam_map.map_state import MapState
 _DESC_FIELDS = ("kf_desc", "pt_desc")
 
 
-def map_state_from_numpy(arrays: dict, device=None) -> MapState:
-    """Every MapState field from a dict of numpy arrays."""
+def map_state_from_numpy(arrays: dict, device="cuda") -> MapState:
+    """Every MapState field from a dict of numpy arrays, on `device` (the
+    card unless the caller names another)."""
+    device = require_device(device)
     fields = {}
     for f in dataclasses.fields(MapState):
         a = np.array(arrays[f.name])        # a writable copy

@@ -6,9 +6,7 @@
 // it: tree=True, border=16 (fast_stack.py:188).
 //
 // What it computes, per level pixel p of a level of true size (h, w):
-//   d_k   = I(p + circle_k) - I(p), k = 0..15 (exactly rounded f32);
-//   score = max( max_s min_{j in arc s} d_j , -min_s max_{j in arc s} d_j )
-//           over the 16 circular arcs of 9;
+//   score = the FAST-9/16 score of p (fast_score.cuh);
 //   out   = score if score >= every score of its 3x3 neighbourhood and p
 //           lies in [border, h-border) x [border, w-border), else 0.
 // Reads outside the canvas clamp to its edge, which is the Pallas wrapper's
@@ -27,7 +25,7 @@
 //     the (32+2) x (32+2) halo tile goes to shared memory, and the NMS and
 //     border mask read it from there: no intermediate touches device memory.
 
-#include <cuda_runtime.h>
+#include "fast_score.cuh"
 
 namespace {
 
@@ -42,34 +40,6 @@ struct LevelShapes {
   int h[kMaxLevels];
   int w[kMaxLevels];
 };
-
-__constant__ int kCircleDy[16] = {-3, -3, -2, -1, 0, 1, 2, 3,
-                                  3, 3, 2, 1, 0, -1, -2, -3};
-__constant__ int kCircleDx[16] = {0, 1, 2, 3, 3, 3, 2, 1,
-                                  0, -1, -2, -3, -3, -3, -2, -1};
-
-__device__ __forceinline__ float fast_score(const float (*win)[kWin], int wy,
-                                            int wx) {
-  const float c = win[wy][wx];
-  float d[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) d[k] = win[wy + kCircleDy[k]][wx + kCircleDx[k]] - c;
-  float bright = 0.0f;  // max over arcs of the arc minimum
-  float dark = 0.0f;    // min over arcs of the arc maximum
-#pragma unroll
-  for (int s = 0; s < 16; ++s) {
-    float mn = d[s], mx = d[s];
-#pragma unroll
-    for (int j = 1; j < 9; ++j) {
-      const float v = d[(s + j) & 15];
-      mn = fminf(mn, v);
-      mx = fmaxf(mx, v);
-    }
-    bright = s == 0 ? mn : fmaxf(bright, mn);
-    dark = s == 0 ? mx : fminf(dark, mx);
-  }
-  return fmaxf(bright, -dark);
-}
 
 __global__ void __launch_bounds__(kThreadsX * kThreadsY)
 fast_score_nms_kernel(const float* __restrict__ canvas, float* __restrict__ out,
@@ -90,9 +60,7 @@ fast_score_nms_kernel(const float* __restrict__ canvas, float* __restrict__ out,
   // window pixel (i, j) is canvas pixel (r0 - 4 + i, c0 - 4 + j), clamped
   for (int idx = tid; idx < kWin * kWin; idx += nthreads) {
     const int i = idx / kWin, j = idx % kWin;
-    const int y = min(max(r0 - 4 + i, 0), H - 1);
-    const int x = min(max(c0 - 4 + j, 0), W - 1);
-    win[i][j] = plane[static_cast<size_t>(y) * W + x];
+    win[i][j] = fast::load_clamped(plane, H, W, r0 - 4 + i, c0 - 4 + j);
   }
   __syncthreads();
 
@@ -100,7 +68,7 @@ fast_score_nms_kernel(const float* __restrict__ canvas, float* __restrict__ out,
   // window pixel (i + 3, j + 3)
   for (int idx = tid; idx < kSc * kSc; idx += nthreads) {
     const int i = idx / kSc, j = idx % kSc;
-    score[i][j] = fast_score(win, i + 3, j + 3);
+    score[i][j] = fast::score(&win[0][0], kWin, i + 3, j + 3);
   }
   __syncthreads();
 

@@ -1,13 +1,21 @@
 """ORB feature extraction on one grayscale image.
 
 Port of orb_slam_tpu/frontend/orb_extractor.py: `ORBConfig` (:35-76),
-`ORBFeatures` (:79-111), `ORBExtractor` (:121-185) and `_extract_stacked`
-(:188-278), in the form the main path runs it: FAST scoring through the
-score+NMS kernel K1, and the one-pass angle + LUT-descriptor head. Harris
-scoring and the per-level exact `_extract` path are not ported yet.
+`ORBFeatures` (:79-111), `ORBExtractor` (:121-185), `_extract_stacked`
+(:188-278) and `_extract` (:281-325).
 
-Pipeline: pyramid canvas -> K1 (FAST score, 3x3 NMS, border mask) ->
-per-cell quota selection -> IC angle + rBRIEF -> level-0 coordinates.
+Stacked (the default): pyramid canvas -> FAST detection -> per-cell quota
+selection -> IC angle + LUT rBRIEF from one patch pass -> level-0
+coordinates. The detection is kernel K1 (score, NMS and border mask) for
+the FAST score (nScoreType=1), and kernel K3 (score and NMS) followed by
+the Harris ranking for nScoreType=0 (`score_harris`), the XLA detector
+the JAX extractor runs for Harris on every backend. The stacked
+descriptor variants without the LUT (`desc_lut_bins=0`) or with
+`patch_method="rowgather"` are not ported.
+
+Per level (`stacked=False`, the cv2-exact oracle of the JAX tests): each
+level resized from the previous one, FAST (or Harris) detection on it,
+IC angle, 7x7 blur and continuous-rotation rBRIEF.
 """
 
 from __future__ import annotations
@@ -17,15 +25,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from orb_slam_tpu_torch.device import require_device
 from orb_slam_tpu_torch.ops.descriptor_stack import (
     angles_desc_fused, lut_sample_indices,
 )
+from orb_slam_tpu_torch.ops.fast import detect_fast_keypoints
 from orb_slam_tpu_torch.ops.fast_stack import (
-    KeypointSelector, build_pyramid_stack, detect_keypoints_stack,
-    pyramid_matrices,
+    KeypointSelector, build_pyramid_stack, detect_keypoints_packed,
+    detect_keypoints_stack, pyramid_matrices,
 )
-from orb_slam_tpu_torch.ops.image import pyramid_shapes
-from orb_slam_tpu_torch.ops.orb_descriptor import _WX, _WY, pack_i32
+from orb_slam_tpu_torch.ops.image import build_pyramid, gaussian_blur, pyramid_shapes
+from orb_slam_tpu_torch.ops.orb_descriptor import (
+    _PAT, _WX, _WY, ic_angles, pack_i32, rbrief_descriptors,
+)
 
 
 @dataclass(frozen=True)
@@ -37,7 +49,7 @@ class ORBConfig:
     fast_th_min: float = 7.0
     edge_threshold: int = 16
     cell_size: int = 32
-    # reference nScoreType: 1 = FAST score; 0 (Harris) is not ported yet
+    # reference nScoreType: 1 = FAST score (default), 0 = Harris ranking
     score_harris: bool = False
     # rBRIEF orientation bins of the LUT descriptor (2*pi/30 steps)
     desc_lut_bins: int = 30
@@ -84,52 +96,67 @@ class ORBFeatures:
 
 
 class ORBExtractor(torch.nn.Module):
-    """Extractor for [height, width] float32 images in [0, 255].
+    """Extractor for [height, width] float32 images in [0, 255], built on
+    `device` (the card unless the caller names another).
+
+    stacked=True (default): all levels as one [L, H, W] canvas (the main
+    path); stacked=False: the per-level pipeline.
 
     Buffers: the pyramid matrices (Rp, Cp), the LUT sample indices, the
-    moment weights and the per-level tables of the keypoint selector, so
-    `.to(device)` moves everything a call needs and a call copies nothing
-    from the host."""
+    moment weights, the rBRIEF pattern and the per-level tables of the
+    keypoint selector, so a call copies nothing from the host."""
 
     def __init__(self, config: ORBConfig = ORBConfig(), height: int = 480,
-                 width: int = 640):
+                 width: int = 640, stacked: bool = True, device="cuda"):
         super().__init__()
-        if config.score_harris:
-            raise NotImplementedError("Harris scoring is not ported yet")
-        if not config.desc_lut_bins or config.patch_method != "onehot":
+        if stacked and (not config.desc_lut_bins
+                        or config.patch_method != "onehot"):
             raise NotImplementedError(
-                "only the LUT descriptor with one-pass patches is ported")
+                "the stacked extractor is ported with the LUT descriptor "
+                "and one-pass patches only")
+        device = require_device(device)
         self.config = config
+        self.stacked = stacked
         self.height, self.width = height, width
         self.shapes = pyramid_shapes(height, width, config.n_levels,
                                      config.scale_factor)
         self.quotas = config.level_quotas()
-        Rp, Cp = pyramid_matrices(height, width, config.n_levels,
-                                  config.scale_factor)
-        self.register_buffer("Rp", torch.from_numpy(Rp))
-        self.register_buffer("Cp", torch.from_numpy(Cp))
-        self.register_buffer(
-            "lut_idx", torch.from_numpy(lut_sample_indices(config.desc_lut_bins)))
         self.register_buffer("wx", torch.from_numpy(_WX))
         self.register_buffer("wy", torch.from_numpy(_WY))
-        self.register_buffer("level_hw", torch.tensor(self.shapes))
         self.register_buffer("level_scale", torch.tensor(
             np.asarray(config.scale_factors(), np.float32)))
-        self.selector = KeypointSelector(
-            self.shapes, self.quotas, th_ini=config.fast_th_ini,
-            th_min=config.fast_th_min, border=config.edge_threshold)
+        if stacked:
+            Rp, Cp = pyramid_matrices(height, width, config.n_levels,
+                                      config.scale_factor)
+            self.register_buffer("Rp", torch.from_numpy(Rp))
+            self.register_buffer("Cp", torch.from_numpy(Cp))
+            self.register_buffer("lut_idx", torch.from_numpy(
+                lut_sample_indices(config.desc_lut_bins)))
+            self.register_buffer("level_hw", torch.tensor(self.shapes))
+            self.selector = KeypointSelector(
+                self.shapes, self.quotas, th_ini=config.fast_th_ini,
+                th_min=config.fast_th_min, border=config.edge_threshold,
+                device=device)
+        else:
+            self.register_buffer("pat", torch.from_numpy(_PAT))
+        self.to(device)
 
     def forward(self, img: torch.Tensor) -> ORBFeatures:
         if tuple(img.shape) != (self.height, self.width):
             raise ValueError(f"image {tuple(img.shape)} != extractor "
                              f"{(self.height, self.width)}")
-        return _extract_stacked(self, img.to(torch.float32))
+        img = img.to(torch.float32)
+        return _extract_stacked(self, img) if self.stacked else _extract(self, img)
 
 
 def _extract_stacked(ex: ORBExtractor, img: torch.Tensor) -> ORBFeatures:
     """The stacked extraction of one image (orb_extractor.py:188-278)."""
     stack = build_pyramid_stack(img, ex.Rp, ex.Cp)
-    xy_l, score_l, valid_l = detect_keypoints_stack(stack, ex.selector)
+    if ex.config.score_harris:
+        xy_l, score_l, valid_l = detect_keypoints_stack(stack, ex.selector,
+                                                        use_harris=True)
+    else:
+        xy_l, score_l, valid_l = detect_keypoints_packed(stack, ex.selector)
     angle_l, desc_l = angles_desc_fused(stack, xy_l, ex.level_hw, ex.lut_idx,
                                         ex.wx, ex.wy, quotas=ex.quotas)
     keep = [(l, q) for l, q in enumerate(ex.quotas) if q > 0]
@@ -143,4 +170,33 @@ def _extract_stacked(ex: ORBExtractor, img: torch.Tensor) -> ORBFeatures:
     xy_f = xy.to(torch.float32) * ex.level_scale[octave][:, None]
     xy_f = torch.where(valid[:, None], xy_f, -1.0)
     return ORBFeatures(xy_f, resp, angle, octave, desc_u8, pack_i32(desc_u8),
+                       valid)
+
+
+def _extract(ex: ORBExtractor, img: torch.Tensor) -> ORBFeatures:
+    """The per-level extraction of one image (orb_extractor.py:281-325)."""
+    cfg = ex.config
+    levels = build_pyramid(img, cfg.n_levels, cfg.scale_factor)
+    parts = []
+    for lvl, (level_img, quota, scale) in enumerate(
+            zip(levels, ex.quotas, cfg.scale_factors())):
+        if quota == 0:
+            continue
+        xy, resp, valid = detect_fast_keypoints(
+            level_img, quota, th_ini=cfg.fast_th_ini, th_min=cfg.fast_th_min,
+            border=cfg.edge_threshold, use_harris=cfg.score_harris,
+            # the reference's imageRatio is the level-0 aspect on every level
+            # (src/ORBextractor.cc:527)
+            aspect_ratio=float(img.shape[1]) / float(img.shape[0]))
+        angle = ic_angles(level_img, xy, ex.wx, ex.wy)
+        # blurred image rounded to integers: cv2's uint8 rounding after
+        # GaussianBlur, which makes descriptors bit-exact against OpenCV
+        blurred = torch.round(gaussian_blur(level_img))
+        desc = rbrief_descriptors(blurred, xy, angle, ex.pat)
+        octave = torch.full((quota,), lvl, dtype=torch.int32, device=img.device)
+        parts.append((xy.to(torch.float32) * scale, resp, angle, octave, desc,
+                      valid))
+    xy, resp, angle, octave, desc_u8, valid = (torch.cat(p) for p in zip(*parts))
+    xy = torch.where(valid[:, None], xy, -1.0)
+    return ORBFeatures(xy, resp, angle, octave, desc_u8, pack_i32(desc_u8),
                        valid)

@@ -16,6 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from orb_slam_tpu_torch.device import require_device
 from orb_slam_tpu_torch.geometry.camera import CameraModel, undistort_points
 from orb_slam_tpu_torch.slam_map.map_state import (
     MapConfig, MapState, add_points, empty_map,
@@ -157,7 +158,7 @@ def lateral_trajectory(n_frames, step=0.08, yaw_rate=0.0):
 
 
 def seed_map(scene: SyntheticScene, T_cw, xy, desc_i32, octave, valid,
-             cfg: MapConfig, device=None, n_extra: int = 2000,
+             cfg: MapConfig, device="cuda", n_extra: int = 2000,
              seed: int = 0) -> MapState:
     """The map the main path tracks against, built from one extracted frame.
 
@@ -170,7 +171,9 @@ def seed_map(scene: SyntheticScene, T_cw, xy, desc_i32, octave, valid,
     `n_extra` scene points jittered by 1 cm with random descriptors fill
     the following slots, as bench.py:69-86 builds its map, so the frustum
     gate and the candidate pool see bench-sized traffic. Keypoints on the
-    background are left out: it does not move with the camera."""
+    background are left out: it does not move with the camera. The map is
+    built on `device`, the card unless the caller names another."""
+    device = require_device(device)
     xy, desc, octave, valid = (np.asarray(torch.as_tensor(v).cpu())
                                for v in (xy, desc_i32, octave, valid))
     T_cw = np.asarray(T_cw, np.float32)

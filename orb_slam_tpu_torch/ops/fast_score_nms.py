@@ -4,8 +4,8 @@ Port of the packed Pallas kernel `fast_score_nms_packed` /
 `_make_packed_kernel` (orb_slam_tpu/ops/pallas_fast.py:121-268) in the
 form the main path calls it (fast_stack.py:188: `tree=True, border=16`).
 The CUDA kernel is csrc/fast_score_nms.cu; `fast_score_nms_plain` is the
-same function in plain PyTorch, built on `fast_score_stack`, the port of
-the XLA score orb_slam_tpu/ops/fast_stack.py:99-123.
+same function in plain PyTorch, built on `ops/fast.py::fast_score_stack`,
+the port of the XLA score orb_slam_tpu/ops/fast_stack.py:99-123.
 
 `fast_score_nms` launches the kernel for a CUDA tensor and runs the plain
 version only for a CPU tensor. Both return a masked score canvas: the
@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from orb_slam_tpu_torch._build import CudaKernel
-from orb_slam_tpu_torch.ops.fast import FAST_CIRCLE
+from orb_slam_tpu_torch.ops.fast import fast_score_stack, level_interior
 
 MAX_LEVELS = 32  # LevelShapes in csrc/fast_score_nms.cu
 
@@ -35,27 +35,6 @@ KERNEL = CudaKernel(
     "fast_score_nms.cu", "fast_score_nms",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-
-
-def fast_score_stack(stack: torch.Tensor) -> torch.Tensor:
-    """[L, H, W] -> [L, H, W] FAST scores, the canvas edge-padded by 3.
-
-    score = max over the 16 circular 9-arcs of the arc minimum of
-    (neighbour - centre), or of (centre - neighbour) for dark arcs."""
-    L, H, W = stack.shape
-    padded = F.pad(stack[None], (3, 3, 3, 3), mode="replicate")[0]
-    D = torch.stack([padded[:, 3 + dy:3 + dy + H, 3 + dx:3 + dx + W]
-                     for dy, dx in FAST_CIRCLE.tolist()], 1) - stack[:, None]
-
-    def run9(op, x):
-        r2 = op(x, torch.roll(x, -1, 1))
-        r4 = op(r2, torch.roll(r2, -2, 1))
-        r8 = op(r4, torch.roll(r4, -4, 1))
-        return op(r8, torch.roll(x, -8, 1))
-
-    bright = run9(torch.minimum, D).amax(1)
-    dark = -run9(torch.maximum, D).amin(1)
-    return torch.maximum(bright, dark)
 
 
 def fast_score_nms_plain(canvas: torch.Tensor, shapes, border: int = 16):
@@ -67,11 +46,7 @@ def fast_score_nms_plain(canvas: torch.Tensor, shapes, border: int = 16):
     score = fast_score_stack(halo)                       # [L, H+2, W+2]
     mx = F.max_pool2d(score[None], 3, stride=1)[0]       # [L, H, W]
     center = score[:, 1:1 + H, 1:1 + W]
-    ys = torch.arange(H, device=canvas.device)[:, None]
-    xs = torch.arange(W, device=canvas.device)[None, :]
-    inner = torch.stack([
-        (ys >= border) & (ys < h - border) & (xs >= border) & (xs < w - border)
-        for h, w in shapes])
+    inner = level_interior(shapes, H, W, border, canvas.device)
     return torch.where((center >= mx) & inner, center, 0.0)
 
 

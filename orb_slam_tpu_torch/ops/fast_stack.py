@@ -1,10 +1,18 @@
-"""Level-stacked pyramid, FAST score and keypoint selection.
+"""Level-stacked pyramid, FAST detectors and keypoint selection.
 
 Port of orb_slam_tpu/ops/fast_stack.py: `_bilinear_matrix` and
-`pyramid_matrices` (:25-57), `build_pyramid_stack` (:60-96),
-`_select_from_masked` (:295-408, as `KeypointSelector`) and the detector
-entry `detect_keypoints_stack_pallas` (:169-192), whose score front is
-kernel K1 (ops/fast_score_nms.py, which also holds `fast_score_stack`).
+`pyramid_matrices` (:25-57), `build_pyramid_stack` (:60-96), the three
+detector entries and their shared selection tail:
+  - `detect_keypoints_packed`, the port of `detect_keypoints_stack_pallas`
+    (:169-192): kernel K1 (ops/fast_score_nms.py), then the selection;
+    the FAST (nScoreType=1) extraction;
+  - `detect_keypoints_stack` (:126-164): kernel K3
+    (ops/fast_score_rect.py), the Harris ranking when asked, then
+    `select_from_scores` (:264-292); the Harris (nScoreType=0) extraction;
+  - `DetectCellsFused`, the port of `_detect_cells_fused` (:195-261):
+    kernel K4 (ops/fast_cell_topk.py) and its candidate tail;
+  - `KeypointSelector`, the port of `_select_from_masked` (:295-408).
+The FAST score `fast_score_stack` (:99-123) is in ops/fast.py.
 
 All levels live in one [L, H, W] canvas, each in its top-left corner.
 """
@@ -15,8 +23,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from orb_slam_tpu_torch.ops.fast import reference_grid, reference_quota
+from orb_slam_tpu_torch.device import require_device
+from orb_slam_tpu_torch.ops.fast import (
+    harris_rank, harris_score_map, level_interior, reference_grid,
+    reference_quota,
+)
+from orb_slam_tpu_torch.ops.fast_cell_topk import cell_block_table, fast_cell_topk
 from orb_slam_tpu_torch.ops.fast_score_nms import fast_score_nms
+from orb_slam_tpu_torch.ops.fast_score_rect import fast_score_nms_rect
 from orb_slam_tpu_torch.ops.image import pyramid_shapes
 from orb_slam_tpu_torch.ops.sort import top_k
 
@@ -88,7 +102,8 @@ class KeypointSelector(torch.nn.Module):
     (exact off the TPU), its stable lexicographic (cell, -score) sort and
     its lax.top_k."""
 
-    def __init__(self, shapes, quotas, th_ini=20.0, th_min=7.0, border=16):
+    def __init__(self, shapes, quotas, th_ini=20.0, th_min=7.0, border=16,
+                 device="cuda"):
         super().__init__()
         self.shapes = [tuple(s) for s in shapes]
         self.quotas = list(quotas)
@@ -103,6 +118,7 @@ class KeypointSelector(torch.nn.Module):
         C = int(n_real.max())
         self.register_buffer("quota_t", torch.tensor(quotas, dtype=torch.int32))
         self.register_buffer("active", torch.arange(C)[None, :] < n_real[:, None])
+        self.to(require_device(device))
 
     def forward(self, base: torch.Tensor):
         L, H, W = base.shape
@@ -165,8 +181,105 @@ class KeypointSelector(torch.nn.Module):
         return xy, top_score, valid
 
 
-def detect_keypoints_stack(stack: torch.Tensor, selector: KeypointSelector):
+def detect_keypoints_packed(stack: torch.Tensor, selector: KeypointSelector):
     """K1 (score + NMS + border mask) then the selection tail: the port of
     detect_keypoints_stack_pallas (fast_stack.py:169-192)."""
     base = fast_score_nms(stack, selector.shapes, border=selector.border)
     return selector(base)
+
+
+def select_from_scores(score: torch.Tensor, keep: torch.Tensor,
+                       selector: KeypointSelector):
+    """Zero non-maxima and pixels outside each level's [border, h-border) x
+    [border, w-border), then select (fast_stack.py:264-292)."""
+    L, H, W = score.shape
+    in_border = level_interior(selector.shapes, H, W, selector.border,
+                               score.device)
+    return selector(torch.where(keep & in_border, score, 0.0))
+
+
+def detect_keypoints_stack(stack: torch.Tensor, selector: KeypointSelector,
+                           use_harris: bool = False):
+    """K3 (FAST score + NMS over the whole canvas), then, with `use_harris`,
+    the nScoreType=0 ranking by the Harris response of every level plane
+    (its minimum taken over the whole canvas, padding included, as the JAX
+    vmap + min), then the selection: the port of detect_keypoints_stack
+    (fast_stack.py:126-164). Returns (xy [L, Qmax, 2] int32, score
+    [L, Qmax], valid [L, Qmax])."""
+    score, keep = fast_score_nms_rect(stack)
+    if use_harris:
+        score, keep = harris_rank(score, keep, harris_score_map(stack),
+                                  selector.th_ini, selector.th_min)
+    return select_from_scores(score, keep, selector)
+
+
+class DetectCellsFused(torch.nn.Module):
+    """The cell-fused detector, the port of `_detect_cells_fused`
+    (fast_stack.py:195-261): K4's per-cell top-K candidates (32x32 cells in
+    32x256 strips), the per-cell two-tier threshold (th_ini, th_min
+    fallback on <= 3 corners) on those candidates, the reference quota
+    redistribution and a per-level top_k.
+
+    The host tail is the JAX one as written, divergences included: `avail`
+    is the count of a cell's thresholded top-K candidates (so it saturates
+    at K), `n_ini` comes from the same candidates, padding rows of a level
+    are inactive, and the last pick is ops/sort.top_k, the tie order of
+    lax.top_k. On texture-skewed frames it therefore selects differently
+    from `detect_keypoints_stack` (fast_stack.py:200-205, :239-243).
+
+    The per-level gather table, `active`, the rank tile and the quotas are
+    buffers built once, so a call copies nothing from the host. A call on
+    the [L, H, W] canvas returns (xy [L, Qmax, 2] int32 level-local (x, y),
+    score [L, Qmax] f32, valid [L, Qmax] bool), the shapes of
+    `detect_keypoints_stack`."""
+
+    BH, BW = 32, 256
+
+    def __init__(self, shapes, quotas, K: int = 4, th_ini: float = 20.0,
+                 th_min: float = 7.0, border: int = 16, device="cuda"):
+        super().__init__()
+        self.shapes = [tuple(s) for s in shapes]
+        self.quotas = list(quotas)
+        self.K, self.th_ini, self.th_min, self.border = K, th_ini, th_min, border
+        lvl, _, _ = cell_block_table(self.shapes, self.BH, self.BW, border)
+        L, nc = len(self.shapes), self.BW // self.BH
+        counts = [lvl.count(l) for l in range(L)]
+        starts = np.cumsum([0] + counts)
+        max_b = max(counts)
+        # block index of each (level, row slot); slots past a level's count
+        # read a zero row appended after the last block
+        gather = np.full((L, max_b), len(lvl), np.int64)
+        for l in range(L):
+            gather[l, :counts[l]] = np.arange(starts[l], starts[l + 1])
+        n_cells = max_b * nc
+        n_real = torch.tensor([c * nc for c in counts])
+        self.register_buffer("gather", torch.from_numpy(gather))
+        self.register_buffer("active", torch.arange(n_cells)[None, :] < n_real[:, None])
+        self.register_buffer("rank", torch.arange(K).repeat(n_cells)[None, :])
+        self.register_buffer("quota_t", torch.tensor(quotas, dtype=torch.int32))
+        self.to(require_device(device))
+
+    def forward(self, stack: torch.Tensor):
+        L, K = len(self.shapes), self.K
+        vals, pos = fast_cell_topk(stack, self.shapes, K=K, BH=self.BH,
+                                   BW=self.BW, border=self.border)
+        # <=3-corner fallback (src/ORBextractor.cc:607-614) per cell, on its
+        # score-sorted candidates
+        n_ini = (vals > self.th_ini).sum(2, keepdim=True)
+        th = torch.where(n_ini > 3, self.th_ini, self.th_min)
+        vals = torch.where(vals > th, vals, 0.0)
+        # [n_blocks + 1, ...] with a zero row for the padding slots
+        vals = torch.cat([vals, torch.zeros_like(vals[:1])])
+        pos = torch.cat([pos, torch.zeros_like(pos[:1])])
+        Vm = vals[self.gather].reshape(L, -1)            # [L, row_len]
+        Pm = pos[self.gather].reshape(L, -1)
+        avail = (Vm.reshape(L, -1, K) > 0.0).sum(2, dtype=torch.int32)
+        retain = reference_quota(avail, self.quota_t, self.active)
+        retain_k = retain[:, :, None].expand(-1, -1, K).reshape(L, -1)
+        key = torch.where(self.rank < retain_k, Vm, 0.0)
+        top_score, sel = top_k(key, max(self.quotas))
+        psel = torch.gather(Pm, 1, sel)
+        xy = torch.stack([psel % 65536, psel // 65536], -1).to(torch.int32)
+        slot = torch.arange(sel.shape[1], device=stack.device)[None, :]
+        valid = (top_score > 0.0) & (slot < self.quota_t[:, None])
+        return xy, top_score, valid

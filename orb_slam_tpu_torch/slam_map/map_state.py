@@ -15,6 +15,8 @@ from dataclasses import dataclass
 
 import torch
 
+from orb_slam_tpu_torch.device import require_device
+
 
 @dataclass(frozen=True)
 class MapConfig:
@@ -58,7 +60,9 @@ class MapState:
         return dataclasses.replace(self, **fields)
 
 
-def empty_map(cfg: MapConfig, device=None) -> MapState:
+def empty_map(cfg: MapConfig, device="cuda") -> MapState:
+    """An empty map on `device` (the card unless the caller names another)."""
+    device = require_device(device)
     K, P, N = cfg.max_keyframes, cfg.max_points, cfg.n_features
     i32, f32 = torch.int32, torch.float32
 

@@ -3,10 +3,13 @@ main path's, and the port's main path on the card against itself on the
 CPU. Needs a CUDA device and nvcc; skipped without a card. On the GPU
 machine: `python -m pytest tests/test_torch_cuda.py -q -m cuda`.
 
-Tolerances: K1 is bit-exact (min/max of exact differences); K2 holds the
-JAX kernel test's bounds (pose atol 1e-4, at most max(2, 1%) inlier
-flips); the whole path on the card and on the CPU sums in different
-orders, so poses agree to 1e-3 and at least 98% of keypoints are equal.
+Tolerances: K1, K3 and K4 are bit-exact (min/max of exact differences,
+exact top-K); K2 holds the JAX kernel test's bounds (pose atol 1e-4, at
+most max(2, 1%) inlier flips); the whole path on the card and on the CPU
+sums in different orders, so poses agree to 1e-3 and at least 98% of
+keypoints are equal; the Harris extractor likewise keeps 98% of its
+keypoints (its shifted scores tie at f32 spacing, so a last-bit change of
+the pyramid can swap two).
 """
 
 import numpy as np
@@ -16,8 +19,12 @@ import torch
 from orb_slam_tpu_torch.frontend.orb_extractor import ORBConfig, ORBExtractor
 from orb_slam_tpu_torch.geometry.camera import CameraModel
 from orb_slam_tpu_torch.io.synthetic import SyntheticScene, lateral_trajectory, seed_map
+from orb_slam_tpu_torch.ops import fast_cell_topk as k4
 from orb_slam_tpu_torch.ops import fast_score_nms as k1
-from orb_slam_tpu_torch.ops.fast_stack import build_pyramid_stack, pyramid_matrices
+from orb_slam_tpu_torch.ops import fast_score_rect as k3
+from orb_slam_tpu_torch.ops.fast_stack import (
+    DetectCellsFused, build_pyramid_stack, pyramid_matrices,
+)
 from orb_slam_tpu_torch.ops.image import pyramid_shapes
 from orb_slam_tpu_torch.pipeline.chunk import extract_track_chunk
 from orb_slam_tpu_torch.slam_map.map_state import MapConfig
@@ -67,6 +74,70 @@ def test_k1_rejects_bad_input(dev):
         k1.fast_score_nms(stack.to(dev).transpose(1, 2), shapes)
     with pytest.raises(ValueError):
         k1.fast_score_nms(stack.to(dev), shapes[:-1])
+
+
+@pytest.mark.parametrize("h,w,levels,quantize", [
+    (480, 640, 8, True), (241, 319, 3, False)])
+def test_k3_equals_plain(dev, h, w, levels, quantize):
+    stack, _ = canvas(h, w, levels, 1, quantize)
+    stack = stack.to(dev)
+    before = k3.KERNEL.launches
+    got = k3.fast_score_nms_rect(stack)
+    assert k3.KERNEL.launches == before + 1
+    want = k3.fast_score_nms_rect_plain(stack)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("h,w,levels,quantize", [
+    (480, 640, 8, True), (241, 319, 3, False)])
+def test_k4_equals_plain(dev, h, w, levels, quantize):
+    stack, shapes = canvas(h, w, levels, 2, quantize)
+    stack = stack.to(dev)
+    before = k4.KERNEL.launches
+    got = k4.fast_cell_topk(stack, shapes)
+    assert k4.KERNEL.launches == before + 1
+    want = k4.fast_cell_topk_plain(stack, shapes)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wrapper", ["k3", "k4"])
+def test_k3_k4_reject_bad_input(dev, wrapper):
+    stack, shapes = canvas(128, 256, 4, 0, False)
+    stack = stack.to(dev)
+    call = {"k3": lambda s, sh: k3.fast_score_nms_rect(s),
+            "k4": lambda s, sh: k4.fast_cell_topk(s, sh)}[wrapper]
+    with pytest.raises(ValueError):
+        call(stack.double(), shapes)
+    with pytest.raises(ValueError):
+        call(stack.transpose(1, 2), shapes)
+    deep = stack[:1].expand(33, -1, -1).contiguous()
+    with pytest.raises(ValueError):
+        call(deep, shapes[:1] * 33)
+
+
+def test_detect_cells_fused_on_card_matches_cpu(dev):
+    stack, shapes = canvas(480, 640, 8, 3, True)
+    quotas = ORBConfig().level_quotas()
+    got = DetectCellsFused(shapes, quotas, device=dev)(stack.to(dev))
+    want = DetectCellsFused(shapes, quotas, device="cpu")(stack)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_harris_extractor_on_card_matches_cpu(dev):
+    W, H = 320, 240
+    scene = SyntheticScene(n_points=400, width=W, height=H, fx=250.0, fy=250.0,
+                           cx=160.0, cy=120.0)
+    img = torch.from_numpy(scene.render_image(lateral_trajectory(2)[1]))
+    cfg = ORBConfig(n_features=300, n_levels=4, score_harris=True)
+    fc = ORBExtractor(cfg, H, W, device="cpu")(img)
+    before = (k1.KERNEL.launches, k3.KERNEL.launches)
+    fg = ORBExtractor(cfg, H, W, device=dev)(img.to(dev))
+    assert (k1.KERNEL.launches, k3.KERNEL.launches) == (before[0], before[1] + 1)
+    same = (fg.xy.cpu() == fc.xy).all(-1).float().mean()
+    assert same >= 0.98, same
 
 
 def gn_fixture(N, seed, dev):
@@ -123,7 +194,7 @@ def test_main_path_on_card_matches_cpu(dev):
     cam = CameraModel(250.0, 250.0, 160.0, 120.0, width=W, height=H)
     outs = {}
     for d in ("cpu", dev):
-        ex = ORBExtractor(ORBConfig(n_features=300, n_levels=4), H, W).to(d)
+        ex = ORBExtractor(ORBConfig(n_features=300, n_levels=4), H, W, device=d)
         f0 = ex(imgs[0].to(d))
         state = seed_map(scene, poses[0], f0.xy, f0.desc_i32, f0.octave, f0.valid,
                          MapConfig(max_keyframes=8, max_points=1024, n_features=300,

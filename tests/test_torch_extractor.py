@@ -50,7 +50,8 @@ def extract_both(img):
     consts = JaxExtractor(jc, use_pallas=False).pyramid_consts((H, W))
     fj = jax.jit(lambda im, c: _extract_stacked(im, c, config=jc, use_pallas=False))(
         jnp.asarray(img), consts)
-    ft = ORBExtractor(ORBConfig(n_features=NF, n_levels=L), H, W)(torch.from_numpy(img))
+    ft = ORBExtractor(ORBConfig(n_features=NF, n_levels=L), H, W, device="cpu")(
+        torch.from_numpy(img))
     return fj, ft
 
 
@@ -101,7 +102,7 @@ def test_angles_desc_fused_matches_jax(kind):
 
 
 def test_extractor_buffers():
-    ex = ORBExtractor(ORBConfig(n_features=NF, n_levels=L), H, W)
+    ex = ORBExtractor(ORBConfig(n_features=NF, n_levels=L), H, W, device="cpu")
     names = {n for n, _ in ex.named_buffers()}
     assert {"Rp", "Cp", "lut_idx", "wx", "wy"} <= names
     assert ex.Rp.shape == (L - 1, H, H) and ex.Cp.shape == (L - 1, W, W)

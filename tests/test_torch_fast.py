@@ -100,7 +100,7 @@ def test_wrapper_runs_plain_on_cpu():
 
 
 def select_both(base, shapes, quotas):
-    got = tfs.KeypointSelector(shapes, quotas)(torch.from_numpy(base))
+    got = tfs.KeypointSelector(shapes, quotas, device="cpu")(torch.from_numpy(base))
     want = jfs._select_from_masked(jnp.asarray(base), shapes, quotas)
     return [g.numpy() for g in got], [np.asarray(w) for w in want]
 

@@ -66,7 +66,8 @@ def build_maps(tscene, pose0, extractor):
     f = extractor(img0)
     seeded = tsyn.seed_map(tscene, pose0, f.xy, f.desc_i32, f.octave, f.valid,
                            MapConfig(max_keyframes=8, max_points=P,
-                                     n_features=NF, n_levels=L), n_extra=500)
+                                     n_features=NF, n_levels=L), device="cpu",
+                           n_extra=500)
     n = int(seeded.pt_valid.sum())
     m = empty_map(JaxMapConfig(max_keyframes=8, max_points=P, n_features=NF,
                                n_levels=L))
@@ -77,11 +78,12 @@ def build_maps(tscene, pose0, extractor):
     m = m._replace(pt_max_dist=jnp.asarray(seeded.pt_max_dist.numpy()),
                    pt_min_dist=jnp.asarray(seeded.pt_min_dist.numpy()),
                    pt_normal=jnp.asarray(seeded.pt_normal.numpy()))
-    return m, map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()})
+    return m, map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()},
+                                   device="cpu")
 
 
-def jax_chunk(imgs, m, cam, K, pose0):
-    cfg = JaxConfig(n_features=NF, n_levels=L)
+def jax_chunk(imgs, m, cam, K, pose0, score_harris=False):
+    cfg = JaxConfig(n_features=NF, n_levels=L, score_harris=score_harris)
     consts = JaxExtractor(cfg, use_pallas=False).pyramid_consts((H, W))
 
     def fn(imgs, consts, state, pose0, vel0):
@@ -105,7 +107,7 @@ def test_extract_track_chunk_matches_jax(kind):
     poses = tsyn.lateral_trajectory(B + 1, step=0.01)
     jcam = jscene.camera_model()
     cam = camera_from_numpy(jcam._asdict())
-    extractor = ORBExtractor(ORBConfig(n_features=NF, n_levels=L), H, W)
+    extractor = ORBExtractor(ORBConfig(n_features=NF, n_levels=L), H, W, device="cpu")
     m, state = build_maps(tscene, poses[0], extractor)
     imgs = np.stack([tscene.render_image(p) for p in poses[1:]])
 
@@ -117,6 +119,12 @@ def test_extract_track_chunk_matches_jax(kind):
         p_local=P, radius=15.0, min_inliers=30, use_motion_model=True,
         max_dist=100)
 
+    check_chunk(fj, xyj, pj, nij, nmj, visj, ft, xyt, ct, poses)
+
+
+def check_chunk(fj, xyj, pj, nij, nmj, visj, ft, xyt, ct, poses):
+    """The port's chunk (ft, xyt, ct) against the JAX scan's outputs, with
+    the tolerances of the module docstring."""
     octave = np.asarray(fj.octave)
     l0 = octave == 0
     np.testing.assert_array_equal(ft.xy.numpy()[l0], np.asarray(fj.xy)[l0])
@@ -175,7 +183,8 @@ def test_convert_roundtrip():
     jm = add_points(jm, jnp.arange(32), jnp.asarray(rng.normal(size=(32, 3)), jnp.float32),
                     jnp.asarray(desc), jnp.zeros(32, jnp.int32),
                     jnp.zeros(32, jnp.int32), jnp.asarray(rng.random(32) > 0.3))
-    st = map_state_from_numpy({k: np.asarray(v) for k, v in jm._asdict().items()})
+    st = map_state_from_numpy({k: np.asarray(v) for k, v in jm._asdict().items()},
+                              device="cpu")
     for k, v in jm._asdict().items():
         got = getattr(st, k).numpy()
         want = np.asarray(v)
@@ -222,11 +231,11 @@ def test_synthetic_scene_matches_jax(quantize):
 def test_seed_map_back_projects_keypoints():
     _, tscene = scenes(DIST["pinhole"])
     pose0 = tsyn.lateral_trajectory(1)[0]
-    f = ORBExtractor(ORBConfig(n_features=NF, n_levels=L), H, W)(
+    f = ORBExtractor(ORBConfig(n_features=NF, n_levels=L), H, W, device="cpu")(
         torch.from_numpy(tscene.render_image(pose0)))
     st = tsyn.seed_map(tscene, pose0, f.xy, f.desc_i32, f.octave, f.valid,
                        MapConfig(max_points=P, n_features=NF, n_levels=L),
-                       n_extra=100)
+                       device="cpu", n_extra=100)
     z = tscene.billboard_depth(pose0, f.xy.numpy())
     keep = f.valid.numpy() & np.isfinite(z)
     n = int(keep.sum())
@@ -238,16 +247,62 @@ def test_seed_map_back_projects_keypoints():
 
 
 def test_kernels_raise_without_nvcc(tmp_path, monkeypatch):
-    """No toolkit: building either kernel raises, and nothing is counted."""
+    """No toolkit: building any kernel raises, and nothing is counted."""
     from orb_slam_tpu_torch import _build
+    from orb_slam_tpu_torch.ops.fast_cell_topk import KERNEL as K4
     from orb_slam_tpu_torch.ops.fast_score_nms import KERNEL as K1
+    from orb_slam_tpu_torch.ops.fast_score_rect import KERNEL as K3
     from orb_slam_tpu_torch.solvers.pose_opt import KERNEL as K2
 
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(_build, "TOOLKIT_NVCC", tmp_path / "nvcc")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    for kernel in (K1, K2):
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build_libraries([k.source for k in (K1, K2, K3, K4)])
+    for kernel in (K1, K2, K3, K4):
         before = kernel.launches
         with pytest.raises(RuntimeError, match="nvcc"):
             kernel.load()
         assert kernel.launches == before
+
+
+def _default_builds():
+    """Each entry point of the port that builds tensors, called with its
+    default device; returns a tensor it built."""
+    from orb_slam_tpu_torch.ops.fast_stack import DetectCellsFused, KeypointSelector
+    from orb_slam_tpu_torch.slam_map.map_state import empty_map as t_empty_map
+
+    shapes, quotas = [(240, 320), (200, 267)], [60, 40]
+    cfg = MapConfig(max_keyframes=2, max_points=8, n_features=4, n_levels=2)
+    jm = empty_map(JaxMapConfig(max_keyframes=2, max_points=8, n_features=4))
+    _, tscene = scenes(DIST["pinhole"])
+    xy = np.full((4, 2), 100.0, np.float32)
+    z4 = np.zeros((4, 8), np.int32)
+    return {
+        "ORBExtractor": lambda: ORBExtractor(ORBConfig(n_features=60, n_levels=2),
+                                             H, W).wx,
+        "ORBExtractor_per_level": lambda: ORBExtractor(
+            ORBConfig(n_features=60, n_levels=2), H, W, stacked=False).pat,
+        "KeypointSelector": lambda: KeypointSelector(shapes, quotas).quota_t,
+        "DetectCellsFused": lambda: DetectCellsFused(shapes, quotas).gather,
+        "empty_map": lambda: t_empty_map(cfg).pt_pos,
+        "map_state_from_numpy": lambda: map_state_from_numpy(
+            {k: np.asarray(v) for k, v in jm._asdict().items()}).pt_pos,
+        "seed_map": lambda: tsyn.seed_map(
+            tscene, tsyn.lateral_trajectory(1)[0], xy, z4, np.zeros(4, np.int32),
+            np.ones(4, bool), cfg, n_extra=2).pt_pos,
+    }
+
+
+@pytest.mark.parametrize("entry", [
+    "ORBExtractor", "ORBExtractor_per_level", "KeypointSelector",
+    "DetectCellsFused", "empty_map", "map_state_from_numpy", "seed_map"])
+def test_entry_points_default_to_the_card(entry):
+    """Without device=, an entry point builds on the CUDA card; with no card
+    it raises and never lands on the CPU."""
+    build = _default_builds()[entry]
+    if torch.cuda.is_available():
+        assert build().is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()

@@ -61,7 +61,8 @@ def jax_map(scene, seed=0):
 
 
 def to_port(m):
-    return map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()})
+    return map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()},
+                                device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -188,7 +189,7 @@ def test_map_updates_match_jax():
                    jnp.asarray(ref), jnp.asarray(first), jnp.asarray(active))
     m = j_insert(m, 2, *(jnp.asarray(v) for v in kf.values()))
     t = tms.add_points(tms.empty_map(tms.MapConfig(max_keyframes=4, max_points=64,
-                                                    n_features=16)),
+                                                    n_features=16), device="cpu"),
                        torch.from_numpy(slots), torch.from_numpy(pos), i32(desc),
                        torch.from_numpy(ref), torch.from_numpy(first),
                        torch.from_numpy(active))
