@@ -11,14 +11,20 @@ Phases (any failure raises and the exit code is non-zero):
   1. device: a CUDA card is required; prints `nvidia-smi` name and power
      limit;
   2. build: compiles csrc/fast_score_nms.cu (K1), csrc/pose_gn.cu (K2),
-     csrc/fast_score_rect.cu (K3) and csrc/fast_cell_topk.cu (K4), one
-     nvcc each, all at once;
-  3. kernel vs plain on the card, with CUDA-event times of both (events
-     around a run of launches):
+     csrc/fast_score_rect.cu (K3), csrc/fast_cell_topk.cu (K4) and K2 with
+     -DPOSE_GN_PROFILE, one nvcc each, all at once; prints each kernel's
+     registers, shared memory and spills from nvcc's -Xptxas -v report;
+  3. kernel vs plain on the card, bit for bit for K1, K3 and K4:
      K1, K3 and K4 on the [8, 480, 640] canvas of a rendered frame, K1
      equal inside every level, K3 equal over the whole canvas (score and
-     keep), K4 equal in values and packed positions; K2 on 1024 rows with
-     outliers, pose within 1e-4 and at most max(2, 1%) inlier flips;
+     keep), K4 equal in values and packed positions; K2 on 1024 and on 32
+     rows with outliers, pose within 1e-4 and at most max(2, 1%) inlier
+     flips. Times (cuda_ms) are CUDA graph replays of 30 captured calls:
+     the device's time, with no host work between launches. K2 at 32 rows
+     is the chain's latency floor; the profiled K2 build prints thread 0's
+     cycles per phase of the chain at 32 and 1024 rows; K3 is also timed on
+     a canvas of zeros (every tile takes its early-out) and of noise (none
+     does);
   4. small input: the FAST main path on the card against the port's plain
      path on the CPU, 3 frames at 320x240;
   5. FAST main path: 640x480, ORBConfig() (1000 features, 8 levels), an
@@ -47,6 +53,7 @@ path, K4 the cell-fused run), the card's name and power limit, and
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -68,11 +75,13 @@ MAX_CENTER_ERR = 0.05
 # kernel: the larger of bytes / memory rate and operations / f32 rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# Reckoned operations per pixel: the FAST score at its leanest (16
-# differences, the circular 9-window min and max by van Herk / Gil-Werman
-# at 44 each, 15 + 15 to combine the 16 arcs, 1 final max = 135), the 3x3
-# NMS (8 max + 1 compare) and the border mask (4 compares + 1 select).
-FAST_SCORE_OPS = 16 + 2 * 44 + 2 * 15 + 1
+# Reckoned operations per pixel: the FAST score at its leanest (the
+# circular 9-window min and max of the 16 circle pixels by van Herk /
+# Gil-Werman at 44 each, 15 + 15 to combine the 16 arcs, the centre
+# subtracted from the 2 results, 1 final max = 121; csrc/fast_score.cuh),
+# the 3x3 NMS (8 max + 1 compare) and the border mask (4 compares + 1
+# select).
+FAST_SCORE_OPS = 2 * 44 + 2 * 15 + 2 + 1
 NMS_OPS = 9
 MASK_OPS = 5
 # K4's top-K round per cell pixel: max, two compares, select, min, zeroing
@@ -80,6 +89,10 @@ TOPK_ROUND_OPS = 6
 # K2 per row and Gauss-Newton iteration: projection, residual, Huber
 # weight, Jacobian and the 27 weighted sums of the normal equations
 GN_OPS_PER_ROW_ITER = 150
+# How each plain version is timed (cuda_ms): K4's copies its strip table
+# from the host, which a CUDA graph cannot capture
+PLAIN_TIMING = {"K1": "graph replay", "K2": "graph replay",
+                "K3": "graph replay", "K4": "events"}
 
 
 def device_line() -> str:
@@ -89,24 +102,67 @@ def device_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=30, trials=3):
-    """Device time of one fn() in ms: CUDA events around `reps` launches in a
-    row, over the count; the median of `trials` such runs, after a warmup.
-    Back to back, the device does not wait for the host between launches
-    unless the host is slower than the kernel."""
-    fn()
+def cuda_ms(fn, reps=30, trials=3, graph=True):
+    """Device time of one fn() in ms, the median of `trials` timed runs
+    after a warmup, each timed with CUDA events and divided by `reps`.
+
+    graph=True: the `reps` calls are captured once in a CUDA graph and each
+    run is one replay, so no host work sits between the launches and the
+    time is the device's own. graph=False, for a function that cannot be
+    captured (one that copies from the host): `reps` calls in a row, which
+    also counts whatever host time per call exceeds the device's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        run = g.replay
+    else:
+        def run():
+            for _ in range(reps):
+                fn()
+    run()
     torch.cuda.synchronize()
     times = []
     for _ in range(trials):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(reps):
-            fn()
+        run()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def ptxas_summary(source):
+    """'kernel: R registers, S bytes smem, spill stores/loads a/b' for each
+    kernel of csrc/<source>, from nvcc's -Xptxas -v report."""
+    from orb_slam_tpu_torch import _build
+
+    out, name, frame = [], "?", "?"
+    for line in _build.ptxas_report(source).splitlines():
+        m = re.search(r"Compiling entry function '.*\d([a-z][a-z0-9_]*?_kernel)",
+                      line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = (f"stack frame {m.group(1)} bytes, spill stores/loads "
+                     f"{m.group(2)}/{m.group(3)} bytes")
+        m = re.search(r"Used (\d+) registers(?:, used \d+ barriers)?"
+                      r"(?:, (\d+) bytes smem)?", line)
+        if m:
+            out.append(f"{name}: {m.group(1)} registers, {m.group(2) or 0} "
+                       f"bytes static smem, {frame}")
+    return "; ".join(out)
 
 
 def bound_ms(n_bytes, n_ops):
@@ -114,6 +170,13 @@ def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bits_equal(a, b):
+    """Equal bit for bit: float tensors compared as their int32 patterns,
+    so -0.0 and +0.0 differ."""
+    as_bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    return a.shape == b.shape and torch.equal(as_bits(a), as_bits(b))
 
 
 def center(T):
@@ -133,7 +196,7 @@ def check_k1(canvas, shapes):
     err = 0.0
     for l, (h, w) in enumerate(shapes):
         a, b = got[l, :h, :w], want[l, :h, :w]
-        if not torch.equal(a, b):
+        if not bits_equal(a.contiguous(), b.contiguous()):
             bad = int((a != b).sum())
             raise AssertionError(f"K1 differs from plain on level {l}: "
                                  f"{bad} pixels")
@@ -145,12 +208,9 @@ def check_k1(canvas, shapes):
     return err, ms, plain_ms, bound
 
 
-def check_k2(dev):
-    """The outlier fixture of tests/test_solvers.py:220-234 at 1024 rows."""
-    from orb_slam_tpu_torch.solvers.pose_opt import pose_gn_plain, pose_optimize
-
+def k2_inputs(N, dev):
+    """The outlier fixture of tests/test_solvers.py:220-234 at N rows."""
     rng = np.random.default_rng(42)
-    N = 1024
     pts = np.stack([rng.uniform(-3, 3, N), rng.uniform(-2, 2, N),
                     rng.uniform(4, 10, N)], 1).astype(np.float32)
     K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
@@ -164,7 +224,15 @@ def check_k2(dev):
     inv_s2 = (1.0 / 1.2 ** (2 * rng.integers(0, 8, N))).astype(np.float32)
     args = [torch.eye(4), torch.from_numpy(pts), torch.from_numpy(uv),
             torch.from_numpy(inv_s2), torch.from_numpy(valid), torch.from_numpy(K)]
-    args = [a.to(dev).contiguous() for a in args]
+    return [a.to(dev).contiguous() for a in args]
+
+
+def check_k2(dev, N=1024):
+    """K2 against plain at N rows, iters (4, 3, 2, 2): pose within 1e-4, at
+    most max(2, 1%) inlier flips, the count equal to the mask's sum."""
+    from orb_slam_tpu_torch.solvers.pose_opt import pose_gn_plain, pose_optimize
+
+    args = k2_inputs(N, dev)
     iters = (4, 3, 2, 2)
     T_k, inl_k, n_k = pose_optimize(*args, iters=iters)
     T_p, inl_p = pose_gn_plain(*args, iters=iters)
@@ -172,9 +240,9 @@ def check_k2(dev):
     err = float((T_k - T_p).abs().max())
     flips = int((inl_k != inl_p).sum())
     if err > 1e-4:
-        raise AssertionError(f"K2 pose differs from plain by {err}")
+        raise AssertionError(f"K2 pose differs from plain by {err} at N={N}")
     if flips > max(2, N // 100):
-        raise AssertionError(f"K2 inlier mask differs on {flips} rows")
+        raise AssertionError(f"K2 inlier mask differs on {flips} of {N} rows")
     if int(n_k) != int(inl_k.sum()):
         raise AssertionError("K2 inlier count disagrees with its mask")
     ms = cuda_ms(lambda: pose_optimize(*args, iters=iters))
@@ -185,6 +253,73 @@ def check_k2(dev):
     return err, ms, plain_ms, bound
 
 
+# phases of K2's chain, in the order of `enum Phase` in csrc/pose_gn.cu
+K2_PHASES = ("stage", "rows", "reduce", "barrier1", "column sums", "solve",
+             "compose", "barrier2", "final")
+K2_PROFILE_BUILD = ("pose_gn.cu", ("-DPOSE_GN_PROFILE",))
+
+
+def k2_phase_cycles(dev, reps=20):
+    """K2 built with -DPOSE_GN_PROFILE at 32 and 1024 rows, iters (4, 3, 2,
+    2): {N: (graph-replay ms of that build, thread 0's clock64() cycles of
+    each phase per launch, summed over the iterations)}."""
+    import ctypes
+
+    from orb_slam_tpu_torch import _build
+    from orb_slam_tpu_torch.solvers.pose_opt import KERNEL
+
+    lib = ctypes.CDLL(str(_build.build_libraries([K2_PROFILE_BUILD])[K2_PROFILE_BUILD]))
+    fn, read = lib.pose_gn, lib.pose_gn_phase_cycles
+    fn.argtypes, fn.restype = KERNEL.argtypes, ctypes.c_int
+    read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+    out = {}
+    for N in (32, 1024):
+        T0, pts, uv, is2, valid, K = k2_inputs(N, dev)
+        T = torch.empty((4, 4), device=dev)
+        inl = torch.empty((N,), dtype=torch.bool, device=dev)
+        n_in = torch.empty((), dtype=torch.int32, device=dev)
+
+        def call():
+            rc = fn(T0.data_ptr(), K.data_ptr(), pts.data_ptr(), uv.data_ptr(),
+                    is2.data_ptr(), valid.data_ptr(), T.data_ptr(), inl.data_ptr(),
+                    n_in.data_ptr(), N, 4, 3, 2, 2, 1e-3,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"profiled pose_gn: CUDA error {rc}")
+
+        ms = cuda_ms(call)
+        cycles = np.zeros(len(K2_PHASES), dtype=np.uint64)
+        read(cycles.ctypes.data)          # reading zeroes the sums
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        if read(cycles.ctypes.data):
+            raise RuntimeError("profiled pose_gn: cannot read the phase cycles")
+        out[N] = (ms, cycles / reps)
+    return out
+
+
+def k3_split(canvas):
+    """K3's time on a canvas whose every tile takes the early-out (zeros), on
+    one where none does (uniform noise), and how many of `canvas`'s 32x32
+    tiles have a uniform 40x40 window (bit patterns, edge-clamped)."""
+    import torch.nn.functional as F
+
+    from orb_slam_tpu_torch.ops.fast_score_rect import fast_score_nms_rect
+
+    gen = torch.Generator(device=canvas.device).manual_seed(0)
+    zeros = torch.zeros_like(canvas)
+    noise = torch.rand(canvas.shape, generator=gen, device=canvas.device) * 255
+    ms = {kind: cuda_ms(lambda c=c: fast_score_nms_rect(c))
+          for kind, c in (("uniform", zeros), ("active", noise))}
+    L, H, W = canvas.shape
+    bits = canvas.view(torch.int32).double()[:, None]   # int32 -> f64 is exact
+    pad = F.pad(bits, (4, 4 + (-W) % 32, 4, 4 + (-H) % 32), mode="replicate")
+    hi = F.max_pool2d(pad, 40, stride=32)
+    lo = -F.max_pool2d(-pad, 40, stride=32)
+    return ms, int((hi == lo).sum()), hi.numel()
+
+
 def check_k3(canvas):
     from orb_slam_tpu_torch.ops.fast_score_rect import (
         fast_score_nms_rect, fast_score_nms_rect_plain,
@@ -193,7 +328,7 @@ def check_k3(canvas):
     score, keep = fast_score_nms_rect(canvas)
     p_score, p_keep = fast_score_nms_rect_plain(canvas)
     torch.cuda.synchronize()
-    if not (torch.equal(score, p_score) and torch.equal(keep, p_keep)):
+    if not (bits_equal(score, p_score) and bits_equal(keep, p_keep)):
         raise AssertionError(
             f"K3 differs from plain: {int((score != p_score).sum())} scores, "
             f"{int((keep != p_keep).sum())} keep flags")
@@ -213,13 +348,14 @@ def check_k4(canvas, shapes):
     vals, pos = fast_cell_topk(canvas, shapes)
     p_vals, p_pos = fast_cell_topk_plain(canvas, shapes)
     torch.cuda.synchronize()
-    if not (torch.equal(vals, p_vals) and torch.equal(pos, p_pos)):
+    if not (bits_equal(vals, p_vals) and bits_equal(pos, p_pos)):
         raise AssertionError(
             f"K4 differs from plain: {int((vals != p_vals).sum())} values, "
             f"{int((pos != p_pos).sum())} positions")
     err = float((vals - p_vals).abs().max())
     ms = cuda_ms(lambda: fast_cell_topk(canvas, shapes))
-    plain_ms = cuda_ms(lambda: fast_cell_topk_plain(canvas, shapes), reps=10)
+    plain_ms = cuda_ms(lambda: fast_cell_topk_plain(canvas, shapes), reps=10,
+                       graph=PLAIN_TIMING["K4"] == "graph replay")
     # bytes: the canvas pixels the strips cover, read once, and the outputs;
     # operations: every strip pixel, canvas edge padding included
     lvl, r0s, c0s = cell_block_table(shapes, 32, 256, 16)
@@ -305,11 +441,13 @@ def main():
 
     # -- build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    _build.build_libraries([k.source for k in kernels.values()])
+    _build.build_libraries([k.source for k in kernels.values()]
+                           + [K2_PROFILE_BUILD])
     for k in kernels.values():
         k.load()
-    print(f"build: {', '.join(k.source for k in kernels.values())} in "
-          f"{time.perf_counter() - t0:.2f} s (parallel nvcc, then load)")
+    print(f"build: {', '.join(k.source for k in kernels.values())} and "
+          f"pose_gn.cu -DPOSE_GN_PROFILE in {time.perf_counter() - t0:.2f} s "
+          f"(parallel nvcc, then load)")
 
     def run_counted(fn):
         """fn() with every launch count set to 0 just before and read just
@@ -350,9 +488,26 @@ def main():
           f"whole {list(canvas.shape)} canvas")
     print(f"K4 fast_cell_topk: values and positions bit-equal to plain, "
           f"output {list(checks['K4'][4])}")
+    # K2 at 32 rows, where the row work is negligible: the chain's own
+    # latency, the floor of this design
+    k2_floor_ms = check_k2(dev, N=32)[1]
     for name, c in checks.items():
-        print(f"{name}: kernel {c[1]:.4f} ms, plain {c[2]:.4f} ms, bound "
-              f"{c[3][0] * 1e3:.2f} us ({c[3][1]}) on {card}")
+        floor = (f", chain floor {k2_floor_ms:.4f} ms (32 rows)"
+                 if name == "K2" else "")
+        print(f"{name}: kernel {c[1]:.4f} ms, plain {c[2]:.4f} ms "
+              f"({PLAIN_TIMING[name]}), bound {c[3][0] * 1e3:.3f} us "
+              f"({c[3][1]}){floor} on {card}")
+    for N, (ms, cyc) in k2_phase_cycles(dev).items():
+        print(f"K2 phases at {N} rows, thread-0 cycles per launch (profiled "
+              f"build, {ms:.4f} ms): "
+              + ", ".join(f"{p} {c:.0f}" for p, c in zip(K2_PHASES, cyc))
+              + f"; total {cyc.sum():.0f}")
+    k3_ms, n_uniform, n_tiles = k3_split(canvas)
+    print(f"K3 split: {k3_ms['uniform']:.4f} ms with every tile uniform, "
+          f"{k3_ms['active']:.4f} ms with none; the frame's canvas has "
+          f"{n_uniform} of {n_tiles} tiles uniform")
+    for name, k in kernels.items():
+        print(f"ptxas {name} {k.source}: {ptxas_summary(k.source)}")
 
     same, err = check_small_input(dev)
     print(f"small input (320x240, 3 frames): card vs CPU plain path: "
@@ -485,7 +640,9 @@ def main():
          "launches": launches[k], "max_abs_err": checks[k][0],
          "ms": checks[k][1], "plain_ms": checks[k][2],
          "bound_ms": checks[k][3][0], "bound_by": checks[k][3][1],
-         "library_ms": None}
+         "library_ms": None, "timing": "graph replay",
+         "plain_timing": PLAIN_TIMING[k],
+         **({"chain_floor_ms": k2_floor_ms} if k == "K2" else {})}
         for k, (name, source, replaces) in meta.items()]}))
     print(f"device: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,9 @@ process each. A missing nvcc or a failed build raises; nothing falls back.
 Each C entry point returns the cudaError_t of its launch, and
 `CudaKernel.__call__` raises if it is not 0. The only mutable state is
 each kernel's `launches` counter, which the wrappers bump once per launch.
+nvcc runs with `-Xptxas -v`; its report (registers, shared memory and
+spills of each kernel) is kept beside the library and read by
+`ptxas_report`.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -40,41 +43,55 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def library_path(source: str) -> Path:
-    """_build/<stem>-<hash>.so for csrc/<source>; the hash covers the
-    source, every header of csrc/ and the flags."""
+def _job(job):
+    """(source, extra nvcc flags) of a build job: a csrc/ file name, or a
+    (name, flags) pair such as ("pose_gn.cu", ("-DPOSE_GN_PROFILE",))."""
+    return (job, ()) if isinstance(job, str) else (job[0], tuple(job[1]))
+
+
+def library_path(source: str, flags=()) -> Path:
+    """_build/<stem>-<hash>.so for csrc/<source> built with NVCC_FLAGS and
+    `flags`; the hash covers the source, every header of csrc/ and the
+    flags."""
     src = CSRC / source
     text = src.read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{src.stem}-{key[:16]}.so"
+    key = hashlib.sha256(text + " ".join(NVCC_FLAGS + tuple(flags)).encode())
+    return BUILD_DIR / f"{src.stem}-{key.hexdigest()[:16]}.so"
 
 
-def build_libraries(sources) -> dict:
-    """Compile each csrc/<source> that has no library in _build/ yet, all
-    nvcc processes at once. Returns {source: library path}."""
-    outs = {s: library_path(s) for s in sources}
-    todo = {s: o for s, o in outs.items() if not o.exists()}
+def build_libraries(jobs) -> dict:
+    """Compile each job (see _job) that has no library in _build/ yet, all
+    nvcc processes at once. Returns {job: library path}."""
+    outs = {j: library_path(*_job(j)) for j in jobs}
+    todo = {j: o for j, o in outs.items() if not o.exists()}
     if todo:
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
-        for s, out in todo.items():
+        for job, out in todo.items():
+            source, flags = _job(job)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)]
-            procs[s] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.PIPE, text=True),
-                        tmp)
+            cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / source)]
+            procs[job] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True),
+                          tmp)
         failed = []
-        for s, (proc, tmp) in procs.items():
+        for job, (proc, tmp) in procs.items():
             stdout, stderr = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"nvcc failed on {s}:\n{stdout}\n{stderr}")
+                failed.append(f"nvcc failed on {job}:\n{stdout}\n{stderr}")
             else:
-                os.replace(tmp, todo[s])
+                todo[job].with_suffix(".ptxas.txt").write_text(stdout + stderr)
+                os.replace(tmp, todo[job])
         if failed:
             raise RuntimeError("\n".join(failed))
     return outs
+
+
+def ptxas_report(source: str) -> str:
+    """nvcc's -Xptxas -v output for the built library of csrc/<source>."""
+    return library_path(source).with_suffix(".ptxas.txt").read_text()
 
 
 def build_library(source: str) -> Path:

@@ -14,8 +14,8 @@
 // exact differences, so the result is bit-exact in any reduction order.
 //
 // What bounds it on the H100: memory. One frame reads the [8, 480, 640] f32
-// canvas (~9.8 MB, plus halo re-reads) and writes as much; the ~300 min/max
-// per pixel are cheap against that. The design:
+// canvas (~9.8 MB, plus halo re-reads) and writes as much; the ~120 min/max
+// per pixel of the shared stencil are cheap against that. The design:
 //   - one block per 32x32 output tile per level; blocks whose tile lies
 //     wholly outside the level exit at once (this replaces the Pallas
 //     kernel's scalar-prefetched block table), so the ~55% of the canvas

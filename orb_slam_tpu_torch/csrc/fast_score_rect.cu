@@ -17,70 +17,170 @@
 // Both outputs are exact (min/max of exactly rounded differences), so the
 // kernel is bit-equal to its plain version.
 //
-// What bounds it on the H100: memory. At [8, 480, 640] it reads 9.8 MB and
-// writes 9.8 MB of score and 2.5 MB of keep; ~150 min/max per pixel are
-// cheaper than that. The design is K1's (fast_score_nms.cu): one block per
-// 32x32 output tile, the (32+8)^2 window (stencil halo 3 + NMS halo 1) in
-// shared memory loaded with coalesced row reads, the (32+2)^2 score tile in
-// shared memory with -inf where the halo leaves the canvas, NMS from there.
-// Unlike K1 it writes every canvas pixel: there is no level to skip.
+// What bounds it on the H100: memory, in principle. At [8, 480, 640] it reads
+// 9.8 MB and writes 9.8 MB of score and 2.5 MB of keep (6.6 us at 3.35
+// TB/s); the 121 min/max and subtractions of the stencil (fast_score.cuh)
+// per pixel of the levels cost less than that at the f32 peak, but min/max
+// do not issue at the FMA rate, so on the tiles that hold level pixels the
+// stencil is the larger cost. The design:
+//   - one block of 256 threads per 32x32 output tile; the (32+8)^2 window
+//     (stencil halo 3 + NMS halo 1) goes to shared memory, in 16-byte
+//     row reads where the window lies inside the canvas and the pointers
+//     allow, else in clamped scalar reads;
+//   - while loading, each thread compares its pixels' bit patterns with
+//     the window's first pixel, and __syncthreads_or tells the block
+//     whether the whole window holds one value. Such a tile (the canvas
+//     the main path builds is ~58% zero padding outside the levels) writes
+//     the known outputs without the stencil: the score of a uniform window
+//     (fast::score_uniform) everywhere, keep = (s >= s). Bits, not ==, so
+//     -0.0 and +0.0 are not merged; exact for any input;
+//   - any other tile scores its (32+2)^2 halo tile into shared memory, -inf
+//     where the halo leaves the canvas (that test only on tiles at the
+//     canvas edge), one row per warp with lane = column, so that a warp's
+//     window reads are 32 consecutive floats; the score rows are padded to
+//     35 floats, so that the NMS reads of rows 4 apart hit other banks; the
+//     3x3 maximum is taken as column maxima, then row maxima;
+//   - each thread writes 4 adjacent pixels of one row: one 16-byte score
+//     store and one 4-byte keep store where the row allows.
+
+#include <cstdint>
 
 #include "fast_score.cuh"
 
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kWin = kTile + 8;
-constexpr int kSc = kTile + 2;
-constexpr int kThreadsX = 32;
-constexpr int kThreadsY = 8;
+constexpr int kTileH = 32;
+constexpr int kTileW = 32;
+constexpr int kWinH = kTileH + 8, kWinW = kTileW + 8;
+constexpr int kScH = kTileH + 2, kScW = kTileW + 2;
+constexpr int kScStride = kScW + 1;  // rows 4 apart fall on other banks
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLevels = 32;  // the port's level limit, as in K1 and K4
+static_assert(kTileW == 32 && kTileH * kTileW == 4 * kThreads,
+              "a tile row is a warp; each thread writes 4 pixels of one row");
 
-__global__ void __launch_bounds__(kThreadsX * kThreadsY)
+// Score pixel (i, j) of the tile: canvas pixel (r0 - 1 + i, c0 - 1 + j),
+// window pixel (i + 3, j + 3). Warp w scores columns 0 .. 31 of rows w,
+// w + kWarps, ..., lane = column, so that the 16 + 1 window reads of a
+// warp are 32 consecutive floats of one row (no bank conflict); the last two
+// columns go to the warps with the fewest rows. kEdge: the tile's halo may
+// leave the canvas, where the score is -inf, so that the NMS ignores it.
+template <bool kEdge>
+__device__ __forceinline__ void score_tile(const float (&win)[kWinH][kWinW],
+                                           float (&score)[kScH][kScStride],
+                                           int r0, int c0, int H, int W, int tid) {
+  const float neg_inf = -__int_as_float(0x7f800000);
+  auto put = [&](int i, int j) {
+    float s = fast::score(&win[0][0], kWinW, i + 3, j + 3);
+    if (kEdge) {
+      const int y = r0 - 1 + i, x = c0 - 1 + j;
+      if (y < 0 || y >= H || x < 0 || x >= W) s = neg_inf;
+    }
+    score[i][j] = s;
+  };
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int i = warp; i < kScH; i += kWarps) put(i, lane);
+  // warps kScH % kWarps .. kWarps - 1 score one row fewer: they take the
+  // last two columns
+  constexpr int kSpare = (kWarps - kScH % kWarps) % kWarps * 32;
+  const int e = tid - (kThreads - kSpare);
+  for (int idx = e >= 0 ? e : kScH * 2; idx < kScH * 2; idx += kSpare)
+    put(idx >> 1, kTileW + (idx & 1));
+}
+
+__global__ void __launch_bounds__(kThreads)
 fast_score_rect_kernel(const float* __restrict__ canvas,
                        float* __restrict__ score_out,
-                       unsigned char* __restrict__ keep_out, int H, int W) {
+                       unsigned char* __restrict__ keep_out, int H, int W,
+                       bool vec) {
   const int lvl = blockIdx.z;
-  const int r0 = blockIdx.y * kTile;
-  const int c0 = blockIdx.x * kTile;
-  __shared__ float win[kWin][kWin];
-  __shared__ float score[kSc][kSc];
+  const int r0 = blockIdx.y * kTileH;
+  const int c0 = blockIdx.x * kTileW;
+  __shared__ __align__(16) float win[kWinH][kWinW];
+  __shared__ float score[kScH][kScStride];
   const size_t plane_off = static_cast<size_t>(lvl) * H * W;
   const float* plane = canvas + plane_off;
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  const int nthreads = kThreadsX * kThreadsY;
+  const int tid = threadIdx.x;
 
   // window pixel (i, j) is canvas pixel (r0 - 4 + i, c0 - 4 + j), clamped
-  for (int idx = tid; idx < kWin * kWin; idx += nthreads) {
-    const int i = idx / kWin, j = idx % kWin;
-    win[i][j] = fast::load_clamped(plane, H, W, r0 - 4 + i, c0 - 4 + j);
+  const float first = fast::load_clamped(plane, H, W, r0 - 4, c0 - 4);
+  const int first_bits = __float_as_int(first);
+  bool differs = false;
+  const bool inside = r0 >= 4 && c0 >= 4 && r0 + kTileH + 4 <= H &&
+                      c0 + kTileW + 4 <= W;
+  if (vec && inside) {
+    constexpr int kQuads = kWinW / 4;
+    for (int idx = tid; idx < kWinH * kQuads; idx += kThreads) {
+      const int i = idx / kQuads, q = idx - i * kQuads;
+      const float4 v = *reinterpret_cast<const float4*>(
+          plane + static_cast<size_t>(r0 - 4 + i) * W + c0 - 4 + 4 * q);
+      *reinterpret_cast<float4*>(&win[i][4 * q]) = v;
+      differs |= __float_as_int(v.x) != first_bits ||
+                 __float_as_int(v.y) != first_bits ||
+                 __float_as_int(v.z) != first_bits ||
+                 __float_as_int(v.w) != first_bits;
+    }
+  } else {
+    for (int idx = tid; idx < kWinH * kWinW; idx += kThreads) {
+      const int i = idx / kWinW, j = idx - i * kWinW;
+      const float v = fast::load_clamped(plane, H, W, r0 - 4 + i, c0 - 4 + j);
+      win[i][j] = v;
+      differs |= __float_as_int(v) != first_bits;
+    }
   }
-  __syncthreads();
+  const bool uniform = !__syncthreads_or(differs);
 
-  // score pixel (i, j) is canvas pixel (r0 - 1 + i, c0 - 1 + j); outside
-  // the canvas it is -inf, so the NMS ignores it
-  const float neg_inf = -__int_as_float(0x7f800000);
-  for (int idx = tid; idx < kSc * kSc; idx += nthreads) {
-    const int i = idx / kSc, j = idx % kSc;
-    const int y = r0 - 1 + i, x = c0 - 1 + j;
-    const bool in_canvas = y >= 0 && y < H && x >= 0 && x < W;
-    score[i][j] = in_canvas ? fast::score(&win[0][0], kWin, i + 3, j + 3) : neg_inf;
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.y; i < kTile; i += kThreadsY) {
-    const int y = r0 + i;
-    const int x = c0 + threadIdx.x;
-    if (y >= H || x >= W) continue;
-    const float c = score[i + 1][threadIdx.x + 1];
-    float mx = c;
+  // output pixels (r0 + oi, c0 + oj .. c0 + oj + 3) of this thread
+  const int oi = tid >> 3, oj = (tid & 7) * 4;
+  float s[4];
+  unsigned char k[4];
+  if (uniform) {
+    const float su = fast::score_uniform(first);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      s[q] = su;
+      k[q] = su >= su ? 1 : 0;
+    }
+  } else {
+    if (r0 >= 1 && c0 >= 1 && r0 + kTileH + 1 <= H && c0 + kTileW + 1 <= W)
+      score_tile<false>(win, score, r0, c0, H, W, tid);
+    else
+      score_tile<true>(win, score, r0, c0, H, W, tid);
+    __syncthreads();
+    float nb[3][6];
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-      for (int dx = 0; dx < 3; ++dx) mx = fmaxf(mx, score[i + dy][threadIdx.x + dx]);
-    const size_t o = plane_off + static_cast<size_t>(y) * W + x;
-    score_out[o] = c;
-    keep_out[o] = c >= mx ? 1 : 0;
+      for (int dx = 0; dx < 6; ++dx) nb[dy][dx] = score[oi + dy][oj + dx];
+    // the 3x3 maximum as column maxima, then row maxima of those
+    float colmax[6];
+#pragma unroll
+    for (int dx = 0; dx < 6; ++dx)
+      colmax[dx] = fmaxf(fmaxf(nb[0][dx], nb[1][dx]), nb[2][dx]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float c = nb[1][q + 1];
+      const float mx = fmaxf(fmaxf(colmax[q], colmax[q + 1]), colmax[q + 2]);
+      s[q] = c;
+      k[q] = c >= mx ? 1 : 0;
+    }
+  }
+
+  const int y = r0 + oi, x = c0 + oj;
+  if (y >= H) return;
+  const size_t o = plane_off + static_cast<size_t>(y) * W + x;
+  if (vec && x + 4 <= W) {
+    *reinterpret_cast<float4*>(score_out + o) = make_float4(s[0], s[1], s[2], s[3]);
+    *reinterpret_cast<uchar4*>(keep_out + o) = make_uchar4(k[0], k[1], k[2], k[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (x + q < W) {
+        score_out[o + q] = s[q];
+        keep_out[o + q] = k[q];
+      }
+    }
   }
 }
 
@@ -89,11 +189,15 @@ fast_score_rect_kernel(const float* __restrict__ canvas,
 extern "C" int fast_score_rect(const void* canvas, void* score, void* keep,
                                int L, int H, int W, void* stream) {
   if (L < 1 || L > kMaxLevels || H < 1 || W < 1) return cudaErrorInvalidValue;
-  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, L);
-  const dim3 block(kThreadsX, kThreadsY);
-  fast_score_rect_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  // 16-byte window reads and score stores, 4-byte keep stores: every row
+  // start aligned
+  const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(canvas) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(score) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(keep) % 4 == 0;
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, L);
+  fast_score_rect_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(canvas), static_cast<float*>(score),
-      static_cast<unsigned char*>(keep), H, W);
+      static_cast<unsigned char*>(keep), H, W, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,7 +10,8 @@ host-clock ms/frame of the extraction alone and of the whole path (a
 warmup window, then the median of 3 windows), then profiles one more
 window with torch.profiler: device kernel time per frame, kernel launches
 per frame, the device's busy share (kernel time over the unprofiled
-whole-path time) and the heaviest kernels. Needs a CUDA card.
+whole-path time), the heaviest kernels and the device time per launch of
+each of the port's own kernels. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -32,6 +33,10 @@ from orb_slam_tpu_torch.io.settings import settings_text, slam_config_from_setti
 from orb_slam_tpu_torch.io.synthetic import SyntheticScene, lateral_trajectory, seed_map
 from orb_slam_tpu_torch.pipeline.chunk import extract_track_chunk
 from orb_slam_tpu_torch.slam_map.map_state import MapConfig
+
+# the hand-written kernels of csrc/, whose time per launch is printed
+PORT_KERNELS = ("fast_score_nms_kernel", "pose_gn_kernel",
+                "fast_score_rect_kernel", "fast_cell_topk_kernel")
 
 
 def _ms_per_frame(fn, n_frames, windows=3):
@@ -106,6 +111,11 @@ def main(argv=None):
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"    {e.self_device_time_total / N:9.1f} us/frame "
                   f"{e.count / N:6.1f}/frame  {e.key[:90]}")
+        for e in kernels:
+            if any(k in e.key for k in PORT_KERNELS):
+                print(f"    port kernel {e.key[:60]}: "
+                      f"{e.self_device_time_total / e.count:.2f} us per launch, "
+                      f"{e.count / N:.1f} launches/frame")
 
 
 if __name__ == "__main__":

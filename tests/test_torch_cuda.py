@@ -4,7 +4,8 @@ CPU. Needs a CUDA device and nvcc; skipped without a card. On the GPU
 machine: `python -m pytest tests/test_torch_cuda.py -q -m cuda`.
 
 Tolerances: K1, K3 and K4 are bit-exact (min/max of exact differences,
-exact top-K); K2 holds the JAX kernel test's bounds (pose atol 1e-4, at
+exact top-K; K3's own tests compare bit patterns, so -0.0 and +0.0
+differ); K2 holds the JAX kernel test's bounds (pose atol 1e-4, at
 most max(2, 1%) inlier flips); the whole path on the card and on the CPU
 sums in different orders, so poses agree to 1e-3 and at least 98% of
 keypoints are equal; the Harris extractor likewise keeps 98% of its
@@ -89,6 +90,66 @@ def test_k3_equals_plain(dev, h, w, levels, quantize):
         assert torch.equal(a, b)
 
 
+def bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def k3_bit_equal(stack):
+    before = k3.KERNEL.launches
+    got = k3.fast_score_nms_rect(stack)
+    assert k3.KERNEL.launches == before + 1
+    want = k3.fast_score_nms_rect_plain(stack)
+    for a, b in zip(got, want):
+        assert torch.equal(bits(a), bits(b))
+
+
+@pytest.mark.parametrize("value", [0.0, -0.0, 41.5, -3e38])
+def test_k3_constant_canvas(dev, value):
+    """Every tile takes the early-out."""
+    k3_bit_equal(torch.full((3, 100, 136), value, device=dev))
+
+
+# one tile's 40x40 window on a [2, 96, 160] canvas: the tile at (32, 64),
+# window rows 28..67, columns 60..99
+HALO_SPOTS = [(28, 60), (28, 99), (67, 60), (67, 99),        # corners
+              (28, 80), (67, 80), (48, 60), (48, 99)]        # sides
+
+
+@pytest.mark.parametrize("y,x", HALO_SPOTS)
+def test_k3_single_pixel_in_a_tile_halo(dev, y, x):
+    """A zero canvas but one pixel just inside the edge of a tile's window:
+    that tile must not take the early-out."""
+    stack = torch.zeros((2, 96, 160), device=dev)
+    stack[1, y, x] = 57.0
+    k3_bit_equal(stack)
+
+
+def test_k3_signed_zeros(dev):
+    """Level 0 all +0.0; level 1 all -0.0 but for isolated +0.0 pixels 7
+    apart: tiles of +0.0 only, of -0.0 only, and of both. Bit patterns, not
+    values, decide the early-out. Each pixel's 16 differences share one
+    sign (+0.0 around a -0.0 centre, -0.0 around an isolated +0.0 one), so
+    every arc minimum and maximum is that zero in any order, and the score
+    is fmaxf(-0.0, +0.0) at the isolated pixels, fmaxf(+0.0, -0.0)
+    elsewhere, in the kernel and in torch alike. (Where a stencil mixes
+    signed zeros, the sign of a min or max depends on the operand order,
+    which torch's reductions do not fix.)"""
+    stack = np.zeros((2, 96, 128), dtype=np.float32)
+    stack[1] = -0.0
+    stack[1, 4:92:7, 4:64:7] = 0.0
+    k3_bit_equal(torch.from_numpy(stack).to(dev))
+
+
+def test_k3_unaligned_canvas(dev):
+    """A canvas 4 bytes past a 16-byte boundary takes the scalar loads and
+    stores."""
+    stack, _ = canvas(128, 256, 4, 1, True)
+    flat = torch.empty(stack.numel() + 1, device=dev)
+    shifted = flat[1:].view(stack.shape)
+    shifted.copy_(stack.to(dev))
+    k3_bit_equal(shifted)
+
+
 @pytest.mark.parametrize("h,w,levels,quantize", [
     (480, 640, 8, True), (241, 319, 3, False)])
 def test_k4_equals_plain(dev, h, w, levels, quantize):
@@ -160,7 +221,7 @@ def gn_fixture(N, seed, dev):
                                 torch.from_numpy(valid), torch.from_numpy(K))]
 
 
-@pytest.mark.parametrize("N", [37, 300, 1000, 4096])
+@pytest.mark.parametrize("N", [32, 37, 300, 1000, 1024, 4096, 5000])
 @pytest.mark.parametrize("iters", [(4, 3, 2, 2), (10, 10, 7, 5), (0, 2, 0, 1)])
 def test_k2_equals_plain(dev, N, iters):
     args = gn_fixture(N, N, dev)
@@ -171,6 +232,28 @@ def test_k2_equals_plain(dev, N, iters):
     torch.testing.assert_close(T, Tp, atol=1e-4, rtol=0)
     assert int((inl != inlp).sum()) <= max(2, N // 100)
     assert int(n) == int(inl.sum())
+
+
+@pytest.mark.parametrize("iters", [(4, 3, 2, 2), (10, 10, 7, 5), (0, 2, 0, 1)])
+def test_k2_single_row(dev, iters):
+    """One row: its normal equations have rank 2, so four directions of each
+    step are set by the 1e-3 damping alone and carry each implementation's
+    rounding divided by it; two implementations that round differently
+    differ there by ~1e-2, and the pose is not compared. What one row does
+    determine is compared: its inlier flag and count, a rigid pose, and the
+    row's reprojection residual, which both drive to the same fit."""
+    args = gn_fixture(1, 1, dev)
+    before = k2.KERNEL.launches
+    T, inl, n = k2.pose_optimize(*args, iters=iters)
+    assert k2.KERNEL.launches == before + 1
+    Tp, inlp = k2.pose_gn_plain(*args, iters=iters)
+    assert torch.equal(inl, inlp) and int(n) == int(inl.sum())
+    R = T[:3, :3]
+    torch.testing.assert_close(R @ R.T, torch.eye(3, device=dev), atol=1e-5, rtol=0)
+    assert torch.equal(T[3], torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev))
+    res = [float(k2._residuals_jac(t, args[1], args[2], args[5])[0].norm())
+           for t in (T, Tp)]
+    assert res[0] <= res[1] + 1e-3, res
 
 
 def test_k2_rejects_bad_input(dev):
