@@ -11,20 +11,28 @@ Phases (any failure raises and the exit code is non-zero):
   1. device: a CUDA card is required; prints `nvidia-smi` name and power
      limit;
   2. build: compiles csrc/fast_score_nms.cu (K1), csrc/pose_gn.cu (K2),
-     csrc/fast_score_rect.cu (K3), csrc/fast_cell_topk.cu (K4) and K2 with
-     -DPOSE_GN_PROFILE, one nvcc each, all at once; prints each kernel's
-     registers, shared memory and spills from nvcc's -Xptxas -v report;
+     csrc/fast_score_rect.cu (K3), csrc/fast_cell_topk.cu (K4), K2 with
+     -DPOSE_GN_PROFILE and the min/max probe csrc/minmax_probe.cu, one
+     nvcc each, all at once; prints each kernel's registers, shared memory
+     and spills from nvcc's -Xptxas -v report;
   3. kernel vs plain on the card, bit for bit for K1, K3 and K4:
      K1, K3 and K4 on the [8, 480, 640] canvas of a rendered frame, K1
      equal inside every level, K3 equal over the whole canvas (score and
      keep), K4 equal in values and packed positions; K2 on 1024 and on 32
      rows with outliers, pose within 1e-4 and at most max(2, 1%) inlier
-     flips. Times (cuda_ms) are CUDA graph replays of 30 captured calls:
-     the device's time, with no host work between launches. K2 at 32 rows
-     is the chain's latency floor; the profiled K2 build prints thread 0's
-     cycles per phase of the chain at 32 and 1024 rows; K3 is also timed on
-     a canvas of zeros (every tile takes its early-out) and of noise (none
-     does);
+     flips. Times (cuda_ms) are CUDA graph replays of 30 captured calls,
+     plain versions included: the device's time, with no host work between
+     launches. K2 at 32 rows is the chain's latency floor; the profiled K2
+     build prints thread 0's cycles per phase of the chain at 32 and 1024
+     rows; K3 is also timed on a canvas of zeros (every tile takes its
+     early-out) and of noise (none does). K4's bound counts the cells that
+     meet the detectable interior (the line also prints the bound over
+     every strip pixel). The min/max probe measures the rate at which the
+     SMs issue f32 min/max (per second, per SM per clock, with the SM
+     clock); each stencil kernel's min/max floor is the min/max its inputs
+     need over that rate (K1: the level pixels; K3: the pixels of tiles
+     without the early-out; K4: the cells that meet the interior), printed
+     with the kernel's share of it;
   4. small input: the FAST main path on the card against the port's plain
      path on the CPU, 3 frames at 320x240;
   5. FAST main path: 640x480, ORBConfig() (1000 features, 8 levels), an
@@ -47,7 +55,8 @@ Phases (any failure raises and the exit code is non-zero):
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last three lines are the kernel table as JSON (launches from
 the path that runs the kernel: K1 and K2 the FAST path, K3 the Harris
-path, K4 the cell-fused run), the card's name and power limit, and
+path, K4 the cell-fused run; `minmax_floor_ms` for the stencil kernels),
+the card's name and power limit, and
 {"ok": true, "device": ...}.
 """
 
@@ -89,10 +98,15 @@ TOPK_ROUND_OPS = 6
 # K2 per row and Gauss-Newton iteration: projection, residual, Huber
 # weight, Jacobian and the 27 weighted sums of the normal equations
 GN_OPS_PER_ROW_ITER = 150
-# How each plain version is timed (cuda_ms): K4's copies its strip table
-# from the host, which a CUDA graph cannot capture
-PLAIN_TIMING = {"K1": "graph replay", "K2": "graph replay",
-                "K3": "graph replay", "K4": "events"}
+# The f32 min/max among those operations, which the SMs issue at their own
+# rate (measured by csrc/minmax_probe.cu, not published): the stencil's 119
+# (2 x 44 arcs, 2 x 15 combines, the final max), the 3x3 maximum's 8 and a
+# top-K round's max and min. The stencil kernels' min/max floor is their
+# count over the measured rate.
+FAST_SCORE_MINMAX = 2 * 44 + 2 * 15 + 1
+NMS_MINMAX = 8
+TOPK_ROUND_MINMAX = 2
+PROBE_CHAINS = 16    # kChains in csrc/minmax_probe.cu
 
 
 def device_line() -> str:
@@ -102,31 +116,23 @@ def device_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=30, trials=3, graph=True):
+def cuda_ms(fn, reps=30, trials=3):
     """Device time of one fn() in ms, the median of `trials` timed runs
-    after a warmup, each timed with CUDA events and divided by `reps`.
-
-    graph=True: the `reps` calls are captured once in a CUDA graph and each
-    run is one replay, so no host work sits between the launches and the
-    time is the device's own. graph=False, for a function that cannot be
-    captured (one that copies from the host): `reps` calls in a row, which
-    also counts whatever host time per call exceeds the device's."""
+    after a warmup, each timed with CUDA events and divided by `reps`. The
+    `reps` calls are captured once in a CUDA graph and each run is one
+    replay, so no host work sits between the launches and the time is the
+    device's own."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(reps):
-                fn()
-        run = g.replay
-    else:
-        def run():
-            for _ in range(reps):
-                fn()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    run = g.replay
     run()
     torch.cuda.synchronize()
     times = []
@@ -205,7 +211,7 @@ def check_k1(canvas, shapes):
     plain_ms = cuda_ms(lambda: fast_score_nms_plain(canvas, shapes), reps=10)
     px = sum(h * w for h, w in shapes)
     bound = bound_ms(8 * px, px * (FAST_SCORE_OPS + NMS_OPS + MASK_OPS))
-    return err, ms, plain_ms, bound
+    return err, ms, plain_ms, bound, px * (FAST_SCORE_MINMAX + NMS_MINMAX)
 
 
 def k2_inputs(N, dev):
@@ -250,7 +256,7 @@ def check_k2(dev, N=1024):
     # inputs: T, K, 3D points, uv, 1/sigma^2, valid; outputs: T, mask, count
     n_bytes = 64 + 36 + N * (12 + 8 + 4 + 1) + 64 + N + 4
     bound = bound_ms(n_bytes, sum(iters) * N * GN_OPS_PER_ROW_ITER)
-    return err, ms, plain_ms, bound
+    return err, ms, plain_ms, bound, None
 
 
 # phases of K2's chain, in the order of `enum Phase` in csrc/pose_gn.cu
@@ -299,25 +305,34 @@ def k2_phase_cycles(dev, reps=20):
     return out
 
 
-def k3_split(canvas):
-    """K3's time on a canvas whose every tile takes the early-out (zeros), on
-    one where none does (uniform noise), and how many of `canvas`'s 32x32
-    tiles have a uniform 40x40 window (bit patterns, edge-clamped)."""
+def k3_tiles(canvas):
+    """(how many of `canvas`'s 32x32 tiles have a uniform 40x40 window (bit
+    patterns, edge-clamped) and take K3's early-out, how many tiles there
+    are, the canvas pixels of the other tiles)."""
     import torch.nn.functional as F
 
-    from orb_slam_tpu_torch.ops.fast_score_rect import fast_score_nms_rect
-
-    gen = torch.Generator(device=canvas.device).manual_seed(0)
-    zeros = torch.zeros_like(canvas)
-    noise = torch.rand(canvas.shape, generator=gen, device=canvas.device) * 255
-    ms = {kind: cuda_ms(lambda c=c: fast_score_nms_rect(c))
-          for kind, c in (("uniform", zeros), ("active", noise))}
     L, H, W = canvas.shape
     bits = canvas.view(torch.int32).double()[:, None]   # int32 -> f64 is exact
     pad = F.pad(bits, (4, 4 + (-W) % 32, 4, 4 + (-H) % 32), mode="replicate")
     hi = F.max_pool2d(pad, 40, stride=32)
     lo = -F.max_pool2d(-pad, 40, stride=32)
-    return ms, int((hi == lo).sum()), hi.numel()
+    uniform = (hi == lo)[:, 0]                             # [L, rows, cols]
+    edge = lambda n, size: (size - 32 * torch.arange(n, device=canvas.device)
+                            ).clamp(max=32)
+    px = edge(uniform.shape[1], H)[:, None] * edge(uniform.shape[2], W)[None]
+    return int(uniform.sum()), uniform.numel(), int((px * ~uniform).sum())
+
+
+def k3_split(canvas):
+    """K3's time on a canvas whose every tile takes the early-out (zeros) and
+    on one where none does (uniform noise)."""
+    from orb_slam_tpu_torch.ops.fast_score_rect import fast_score_nms_rect
+
+    gen = torch.Generator(device=canvas.device).manual_seed(0)
+    zeros = torch.zeros_like(canvas)
+    noise = torch.rand(canvas.shape, generator=gen, device=canvas.device) * 255
+    return {kind: cuda_ms(lambda c=c: fast_score_nms_rect(c))
+            for kind, c in (("uniform", zeros), ("active", noise))}
 
 
 def check_k3(canvas):
@@ -337,12 +352,15 @@ def check_k3(canvas):
     plain_ms = cuda_ms(lambda: fast_score_nms_rect_plain(canvas), reps=10)
     px = canvas.numel()       # every canvas pixel: read, score and keep out
     bound = bound_ms(px * (4 + 4 + 1), px * (FAST_SCORE_OPS + NMS_OPS))
-    return err, ms, plain_ms, bound
+    # min/max: the pixels of the tiles without the early-out
+    active_px = k3_tiles(canvas)[2]
+    return (err, ms, plain_ms, bound,
+            active_px * (FAST_SCORE_MINMAX + NMS_MINMAX))
 
 
 def check_k4(canvas, shapes):
     from orb_slam_tpu_torch.ops.fast_cell_topk import (
-        cell_block_table, fast_cell_topk, fast_cell_topk_plain,
+        cell_block_table, empty_cells, fast_cell_topk, fast_cell_topk_plain,
     )
 
     vals, pos = fast_cell_topk(canvas, shapes)
@@ -354,19 +372,74 @@ def check_k4(canvas, shapes):
             f"{int((pos != p_pos).sum())} positions")
     err = float((vals - p_vals).abs().max())
     ms = cuda_ms(lambda: fast_cell_topk(canvas, shapes))
-    plain_ms = cuda_ms(lambda: fast_cell_topk_plain(canvas, shapes), reps=10,
-                       graph=PLAIN_TIMING["K4"] == "graph replay")
+    plain_ms = cuda_ms(lambda: fast_cell_topk_plain(canvas, shapes), reps=10)
     # bytes: the canvas pixels the strips cover, read once, and the outputs;
-    # operations: every strip pixel, canvas edge padding included
+    # operations: every pixel of the cells that meet the detectable interior
+    # (the other cells' output follows from the shapes alone)
     lvl, r0s, c0s = cell_block_table(shapes, 32, 256, 16)
     H, W = canvas.shape[1:]
     covered = sum((min(r + 32, H) - r) * (min(c + 256, W) - c)
                   for r, c in zip(r0s, c0s))
-    n_px = len(lvl) * 32 * 256
-    bound = bound_ms(4 * covered + vals.numel() * 8,
-                     n_px * (FAST_SCORE_OPS + NMS_OPS + MASK_OPS
-                             + 4 * TOPK_ROUND_OPS))
-    return err, ms, plain_ms, bound, tuple(vals.shape)
+    n_cells = int((~empty_cells(shapes, 32, 256, 16)).sum())
+    per_px = FAST_SCORE_OPS + NMS_OPS + MASK_OPS + 4 * TOPK_ROUND_OPS
+    n_bytes = 4 * covered + vals.numel() * 8
+    bound = bound_ms(n_bytes, n_cells * 32 * 32 * per_px)
+    every_strip_px = bound_ms(n_bytes, len(lvl) * 32 * 256 * per_px)
+    print(f"K4 bound: {every_strip_px[0] * 1e3:.3f} us ({every_strip_px[1]}) "
+          f"counting every pixel of the {len(lvl)} strips, "
+          f"{bound[0] * 1e3:.3f} us ({bound[1]}) counting the {n_cells} of "
+          f"{len(lvl) * 8} cells that meet the detectable interior")
+    minmax = n_cells * 32 * 32 * (FAST_SCORE_MINMAX + NMS_MINMAX
+                                  + 4 * TOPK_ROUND_MINMAX)
+    return err, ms, plain_ms, bound, minmax, tuple(vals.shape)
+
+
+def minmax_rate(dev, iters=4096, threads=256, blocks_per_sm=8):
+    """The rate at which the card issues f32 min/max, from
+    csrc/minmax_probe.cu with `blocks_per_sm` blocks of `threads` per SM:
+    (min/max per second over the card, the median over SMs of the min/max
+    per SM cycle over the span its blocks ran, the median SM clock over
+    those spans in Hz, nvidia-smi's clocks.sm read while the probe runs)."""
+    import ctypes
+
+    from orb_slam_tpu_torch._build import CudaKernel
+
+    probe = CudaKernel("minmax_probe.cu", "minmax_probe",
+                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p])
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = blocks_per_sm * n_sm
+    inp = torch.linspace(-3.0, 5.0, 64, device=dev)
+    out = torch.empty(blocks * threads, device=dev)
+    record = torch.empty((blocks, 5), dtype=torch.int64, device=dev)
+
+    def call():
+        probe(inp.data_ptr(), out.data_ptr(), record.data_ptr(), blocks,
+              threads, iters, torch.cuda.current_stream().cuda_stream)
+
+    ms = cuda_ms(call, reps=10)
+    # keep the card busy for ~1 s while nvidia-smi reads the clock
+    for _ in range(int(1000 / ms)):
+        call()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip()
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError("min/max probe: non-finite output")
+    per_block = threads * iters * PROBE_CHAINS
+    rates, clocks = [], []
+    rec = record.cpu()
+    for sm in rec[:, 0].unique():
+        r = rec[rec[:, 0] == sm]
+        cycles = int(r[:, 2].max() - r[:, 1].min())
+        ns = int(r[:, 4].max() - r[:, 3].min())
+        rates.append(len(r) * per_block / cycles)
+        clocks.append(cycles / ns * 1e9)
+    per_s = blocks * per_block / (ms * 1e-3)
+    return per_s, statistics.median(rates), statistics.median(clocks), smi
 
 
 def check_small_input(dev):
@@ -442,12 +515,12 @@ def main():
     # -- build: one nvcc per source, all started together
     t0 = time.perf_counter()
     _build.build_libraries([k.source for k in kernels.values()]
-                           + [K2_PROFILE_BUILD])
+                           + [K2_PROFILE_BUILD, "minmax_probe.cu"])
     for k in kernels.values():
         k.load()
-    print(f"build: {', '.join(k.source for k in kernels.values())} and "
-          f"pose_gn.cu -DPOSE_GN_PROFILE in {time.perf_counter() - t0:.2f} s "
-          f"(parallel nvcc, then load)")
+    print(f"build: {', '.join(k.source for k in kernels.values())}, "
+          f"pose_gn.cu -DPOSE_GN_PROFILE and minmax_probe.cu in "
+          f"{time.perf_counter() - t0:.2f} s (parallel nvcc, then load)")
 
     def run_counted(fn):
         """fn() with every launch count set to 0 just before and read just
@@ -487,7 +560,7 @@ def main():
     print(f"K3 fast_score_rect: score and keep bit-equal to plain over the "
           f"whole {list(canvas.shape)} canvas")
     print(f"K4 fast_cell_topk: values and positions bit-equal to plain, "
-          f"output {list(checks['K4'][4])}")
+          f"output {list(checks['K4'][5])}")
     # K2 at 32 rows, where the row work is negligible: the chain's own
     # latency, the floor of this design
     k2_floor_ms = check_k2(dev, N=32)[1]
@@ -495,19 +568,37 @@ def main():
         floor = (f", chain floor {k2_floor_ms:.4f} ms (32 rows)"
                  if name == "K2" else "")
         print(f"{name}: kernel {c[1]:.4f} ms, plain {c[2]:.4f} ms "
-              f"({PLAIN_TIMING[name]}), bound {c[3][0] * 1e3:.3f} us "
+              f"(graph replay), bound {c[3][0] * 1e3:.3f} us "
               f"({c[3][1]}){floor} on {card}")
     for N, (ms, cyc) in k2_phase_cycles(dev).items():
         print(f"K2 phases at {N} rows, thread-0 cycles per launch (profiled "
               f"build, {ms:.4f} ms): "
               + ", ".join(f"{p} {c:.0f}" for p, c in zip(K2_PHASES, cyc))
               + f"; total {cyc.sum():.0f}")
-    k3_ms, n_uniform, n_tiles = k3_split(canvas)
+    k3_ms = k3_split(canvas)
+    n_uniform, n_tiles, _ = k3_tiles(canvas)
     print(f"K3 split: {k3_ms['uniform']:.4f} ms with every tile uniform, "
           f"{k3_ms['active']:.4f} ms with none; the frame's canvas has "
           f"{n_uniform} of {n_tiles} tiles uniform")
-    for name, k in kernels.items():
-        print(f"ptxas {name} {k.source}: {ptxas_summary(k.source)}")
+    for name, source in [(n, k.source) for n, k in kernels.items()] + [
+            ("probe", "minmax_probe.cu")]:
+        print(f"ptxas {name} {source}: {ptxas_summary(source)}")
+
+    # the min/max issue rate, and each stencil kernel's share of the floor
+    # it sets: the min/max that the kernel's inputs need over that rate
+    per_s, per_sm_clock, clock_hz, smi_clock = minmax_rate(dev)
+    print(f"min/max probe: {per_s:.4g} f32 min/max per second, "
+          f"{per_sm_clock:.2f} per SM per clock at {clock_hz / 1e9:.3f} GHz "
+          f"(medians over the SMs of clock64 and globaltimer over the span "
+          f"each SM's blocks ran); nvidia-smi clocks.sm, clocks.max.sm: "
+          f"{smi_clock}; on {card}")
+    floors = {}
+    for name in ("K1", "K3", "K4"):
+        minmax, ms = checks[name][4], checks[name][1]
+        floors[name] = minmax / per_s * 1e3
+        print(f"{name} min/max floor: {minmax / 1e6:.1f} M min/max -> "
+              f"{floors[name] * 1e3:.2f} us; the kernel's {ms * 1e3:.2f} us "
+              f"is {floors[name] / ms:.2f} of it")
 
     same, err = check_small_input(dev)
     print(f"small input (320x240, 3 frames): card vs CPU plain path: "
@@ -641,7 +732,8 @@ def main():
          "ms": checks[k][1], "plain_ms": checks[k][2],
          "bound_ms": checks[k][3][0], "bound_by": checks[k][3][1],
          "library_ms": None, "timing": "graph replay",
-         "plain_timing": PLAIN_TIMING[k],
+         "plain_timing": "graph replay",
+         "minmax_floor_ms": floors.get(k),
          **({"chain_floor_ms": k2_floor_ms} if k == "K2" else {})}
         for k, (name, source, replaces) in meta.items()]}))
     print(f"device: {card}")

@@ -13,97 +13,104 @@
 // mode="edge" pad (pallas_fast.py:224-225). Every value is a min or max of
 // exact differences, so the result is bit-exact in any reduction order.
 //
-// What bounds it on the H100: memory. One frame reads the [8, 480, 640] f32
-// canvas (~9.8 MB, plus halo re-reads) and writes as much; the ~120 min/max
-// per pixel of the shared stencil are cheap against that. The design:
-//   - one block per 32x32 output tile per level; blocks whose tile lies
-//     wholly outside the level exit at once (this replaces the Pallas
-//     kernel's scalar-prefetched block table), so the ~55% of the canvas
-//     that holds no level costs nothing and is left unwritten;
-//   - the (32+8) x (32+8) input window (stencil halo 3 + NMS halo 1) is
-//     loaded once into shared memory with coalesced row reads, the score of
-//     the (32+2) x (32+2) halo tile goes to shared memory, and the NMS and
-//     border mask read it from there: no intermediate touches device memory.
+// What bounds it on the H100: the min/max of the stencil (119 per scored
+// pixel, which the SMs issue at half the FMA rate); the canvas bytes (7.6 MB of level pixels at [8, 480, 640]) cost
+// less. The design:
+//   - one block of 256 threads per 32x32 tile that meets a level, and no
+//     other, so the canvas outside the levels (~55% at [8, 480, 640])
+//     launches nothing and is left unwritten; a block finds its tile from a
+//     table passed by value (this replaces the Pallas kernel's
+//     scalar-prefetched block table): 3 segments of whole tile rows per
+//     level, the inner rows of every level first, the top and bottom rows
+//     (whose unmasked score rows are fewer) last, so that the cheap tiles
+//     fill the end of the launch, where the SMs would otherwise wait on the
+//     last full tiles (level order was slower on the H100);
+//   - the tile body is fast_tile.cuh's masked score tile, shared with K4;
+//   - each thread writes its 4 adjacent pixels of one row, one 16-byte
+//     store where the row and the pointers allow.
 
-#include "fast_score.cuh"
+#include <cstdint>
+
+#include "fast_tile.cuh"
 
 namespace {
 
-constexpr int kTile = 32;              // output tile edge
-constexpr int kWin = kTile + 8;        // input window edge (halo 4 each side)
-constexpr int kSc = kTile + 2;         // score tile edge (NMS halo 1)
-constexpr int kThreadsX = 32;
-constexpr int kThreadsY = 8;
 constexpr int kMaxLevels = 32;
+constexpr int kMaxSegments = 3 * kMaxLevels;
 
-struct LevelShapes {
+// The blocks run through 3L segments, each a run of whole tile rows of one
+// level (see ops/fast_score_nms.py::tile_table for the order).
+struct TileTable {
   int h[kMaxLevels];
   int w[kMaxLevels];
+  int lvl[kMaxSegments];
+  int start[kMaxSegments];  // first block of each segment
+  int r0[kMaxSegments];     // r0 of the segment's first tile row
+  int n_tx[kMaxSegments];   // tiles per tile row: ceil(w / 32)
 };
 
-__global__ void __launch_bounds__(kThreadsX * kThreadsY)
+__global__ void __launch_bounds__(fast::kTileThreads)
 fast_score_nms_kernel(const float* __restrict__ canvas, float* __restrict__ out,
-                      LevelShapes shapes, int H, int W, int border) {
-  const int lvl = blockIdx.z;
-  const int h = shapes.h[lvl];
-  const int w = shapes.w[lvl];
-  const int r0 = blockIdx.y * kTile;
-  const int c0 = blockIdx.x * kTile;
-  if (r0 >= h || c0 >= w) return;  // tile wholly outside the level
+                      TileTable table, int n_seg, int H, int W, int border,
+                      bool vec) {
+  __shared__ fast::TileSmem sm;
+  const int b = blockIdx.x;
+  int seg = 0;
+  while (seg + 1 < n_seg && b >= table.start[seg + 1]) ++seg;
+  const int lvl = table.lvl[seg];
+  const int local = b - table.start[seg];
+  const int ty = local / table.n_tx[seg];
+  const int r0 = table.r0[seg] + ty * fast::kTile;
+  const int c0 = (local - ty * table.n_tx[seg]) * fast::kTile;
+  const size_t plane_off = static_cast<size_t>(lvl) * H * W;
 
-  __shared__ float win[kWin][kWin];
-  __shared__ float score[kSc][kSc];
-  const float* plane = canvas + static_cast<size_t>(lvl) * H * W;
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  const int nthreads = kThreadsX * kThreadsY;
+  float s[4];
+  fast::masked_score_tile(canvas + plane_off, H, W, r0, c0, table.h[lvl],
+                          table.w[lvl], border, vec, sm, s);
 
-  // window pixel (i, j) is canvas pixel (r0 - 4 + i, c0 - 4 + j), clamped
-  for (int idx = tid; idx < kWin * kWin; idx += nthreads) {
-    const int i = idx / kWin, j = idx % kWin;
-    win[i][j] = fast::load_clamped(plane, H, W, r0 - 4 + i, c0 - 4 + j);
-  }
-  __syncthreads();
-
-  // score pixel (i, j) is canvas pixel (r0 - 1 + i, c0 - 1 + j), i.e.
-  // window pixel (i + 3, j + 3)
-  for (int idx = tid; idx < kSc * kSc; idx += nthreads) {
-    const int i = idx / kSc, j = idx % kSc;
-    score[i][j] = fast::score(&win[0][0], kWin, i + 3, j + 3);
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.y; i < kTile; i += kThreadsY) {
-    const int y = r0 + i;
-    const int x = c0 + threadIdx.x;
-    if (y >= H || x >= W) continue;
-    const float c = score[i + 1][threadIdx.x + 1];
-    float mx = c;
+  const int y = r0 + fast::tile_row(threadIdx.x);
+  const int x = c0 + fast::tile_col(threadIdx.x);
+  if (y >= H) return;
+  const size_t o = plane_off + static_cast<size_t>(y) * W + x;
+  if (vec && x + 4 <= W) {
+    *reinterpret_cast<float4*>(out + o) = make_float4(s[0], s[1], s[2], s[3]);
+  } else {
 #pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) mx = fmaxf(mx, score[i + dy][threadIdx.x + dx]);
-    const bool inside = y >= border && y < h - border && x >= border && x < w - border;
-    out[static_cast<size_t>(lvl) * H * W + static_cast<size_t>(y) * W + x] =
-        (inside && c >= mx) ? c : 0.0f;
+    for (int q = 0; q < 4; ++q)
+      if (x + q < W) out[o + q] = s[q];
   }
 }
 
 }  // namespace
 
-extern "C" int fast_score_nms(const void* canvas, void* out, const void* hw,
-                              int L, int H, int W, int border, void* stream) {
-  if (L < 1 || L > kMaxLevels || H < 1 || W < 1) return cudaErrorInvalidValue;
-  LevelShapes shapes{};
-  const int* hw_host = static_cast<const int*>(hw);
+// table: L rows of (h, w), then 3L rows of (level, first block, r0 of the
+// first tile row, tiles per tile row), host memory; n_blocks = the number of
+// tiles that meet a level.
+extern "C" int fast_score_nms(const void* canvas, void* out, const void* table,
+                              int n_blocks, int L, int H, int W, int border,
+                              void* stream) {
+  if (L < 1 || L > kMaxLevels || H < 1 || W < 1 || n_blocks < 1)
+    return cudaErrorInvalidValue;
+  TileTable t{};
+  const int* rows = static_cast<const int*>(table);
   for (int l = 0; l < L; ++l) {
-    shapes.h[l] = hw_host[2 * l];
-    shapes.w[l] = hw_host[2 * l + 1];
+    t.h[l] = rows[2 * l];
+    t.w[l] = rows[2 * l + 1];
   }
-  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, L);
-  const dim3 block(kThreadsX, kThreadsY);
-  fast_score_nms_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(canvas), static_cast<float*>(out), shapes, H, W,
-      border);
+  const int* segs = rows + 2 * L;
+  for (int s = 0; s < 3 * L; ++s) {
+    t.lvl[s] = segs[4 * s];
+    t.start[s] = segs[4 * s + 1];
+    t.r0[s] = segs[4 * s + 2];
+    t.n_tx[s] = segs[4 * s + 3] > 0 ? segs[4 * s + 3] : 1;
+  }
+  // 16-byte window reads and stores: every row start aligned
+  const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(canvas) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  fast_score_nms_kernel<<<n_blocks, fast::kTileThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(canvas), static_cast<float*>(out), t, 3 * L, H,
+      W, border, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

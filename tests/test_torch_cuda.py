@@ -4,8 +4,8 @@ CPU. Needs a CUDA device and nvcc; skipped without a card. On the GPU
 machine: `python -m pytest tests/test_torch_cuda.py -q -m cuda`.
 
 Tolerances: K1, K3 and K4 are bit-exact (min/max of exact differences,
-exact top-K; K3's own tests compare bit patterns, so -0.0 and +0.0
-differ); K2 holds the JAX kernel test's bounds (pose atol 1e-4, at
+exact top-K; the tests that compare bit patterns tell -0.0 from +0.0);
+K2 holds the JAX kernel test's bounds (pose atol 1e-4, at
 most max(2, 1%) inlier flips); the whole path on the card and on the CPU
 sums in different orders, so poses agree to 1e-3 and at least 98% of
 keypoints are equal; the Harris extractor likewise keeps 98% of its
@@ -161,6 +161,82 @@ def test_k4_equals_plain(dev, h, w, levels, quantize):
     want = k4.fast_cell_topk_plain(stack, shapes)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def k1_bit_equal(stack, shapes, border=16):
+    """K1 equals its plain version bit for bit inside every level (the
+    kernel leaves the canvas outside the levels' tiles unwritten)."""
+    before = k1.KERNEL.launches
+    got = k1.fast_score_nms(stack, shapes, border=border)
+    assert k1.KERNEL.launches == before + 1
+    want = k1.fast_score_nms_plain(stack, shapes, border=border)
+    for l, (lh, lw) in enumerate(shapes):
+        assert torch.equal(bits(got[l, :lh, :lw].contiguous()),
+                           bits(want[l, :lh, :lw].contiguous())), l
+
+
+def k4_bit_equal(stack, shapes, **kw):
+    before = k4.KERNEL.launches
+    got = k4.fast_cell_topk(stack, shapes, **kw)
+    assert k4.KERNEL.launches == before + 1
+    want = k4.fast_cell_topk_plain(stack, shapes, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(bits(a), bits(b))
+    return got
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k4"])
+def test_k1_k4_unaligned_canvas(dev, kernel):
+    """A canvas 4 bytes past a 16-byte boundary takes the scalar window
+    loads (and K1 the scalar stores)."""
+    stack, shapes = canvas(128, 256, 4, 1, True)
+    flat = torch.empty(stack.numel() + 1, device=dev)
+    shifted = flat[1:].view(stack.shape)
+    shifted.copy_(stack.to(dev))
+    {"k1": k1_bit_equal, "k4": k4_bit_equal}[kernel](shifted, shapes)
+
+
+def test_k4_all_zero_canvas(dev):
+    """No corner anywhere: every cell, skipped or scored, gives +0.0 and
+    2^30 in every slot."""
+    shapes = [(100, 136), (83, 113), (69, 94)]
+    vals, pos = k4_bit_equal(torch.zeros((3, 100, 136), device=dev), shapes)
+    assert not bits(vals).any() and bool((pos == k4.SENTINEL).all())
+
+
+def constant_patches(seed, L, H, W):
+    """Few distinct values (integer scores tie everywhere) and large
+    constant patches."""
+    rng = np.random.default_rng(seed)
+    stack = (rng.integers(0, 4, (L, H, W)) * 20.0).astype(np.float32)
+    for l in range(L):
+        for _ in range(4):
+            y, x = rng.integers(0, H - 24), rng.integers(0, W - 24)
+            dy, dx = rng.integers(8, 48, 2)
+            stack[l, y:y + dy, x:x + dx] = float(rng.integers(0, 4) * 20)
+    return torch.from_numpy(stack)
+
+
+def test_k4_constant_patches(dev):
+    shapes = pyramid_shapes(200, 300, 3, 1.2)
+    k4_bit_equal(constant_patches(6, 3, 200, 300).to(dev), shapes, K=8)
+
+
+@pytest.mark.parametrize("BW", [32, 128, 256])
+@pytest.mark.parametrize("K", [1, 4, 8])
+def test_k4_strip_widths_and_rounds(dev, BW, K):
+    stack, shapes = canvas(241, 319, 3, 4, True)
+    vals, _ = k4_bit_equal(stack.to(dev), shapes, K=K, BW=BW)
+    assert vals.shape[1:] == (BW // 32, K)
+
+
+@pytest.mark.parametrize("border", [3, 16])
+def test_k1_levels_smaller_than_a_tile(dev, border):
+    shapes = [(100, 90), (20, 25), (8, 8)]
+    stack = constant_patches(7, 3, 100, 90)
+    stack[1:] = torch.from_numpy(
+        np.random.default_rng(8).integers(0, 5, (2, 100, 90)).astype(np.float32) * 9)
+    k1_bit_equal(stack.to(dev), shapes, border=border)
 
 
 @pytest.mark.parametrize("wrapper", ["k3", "k4"])
