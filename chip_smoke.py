@@ -51,7 +51,29 @@ Phases (any failure raises and the exit code is non-zero):
      equal the stacked detector's, and the share of its keypoints that
      the FAST path also selects is printed;
   8. timing of both tracking paths as bench.py: a warmup window each,
-     then the median of 3 windows each, the paths in turns (F H H F F H).
+     then the median of 3 windows each, the paths in turns (F H H F F H);
+  9. mapping path: the port's SLAMSystem at the SlamConfig defaults
+     (MapConfig(): 256 keyframes, 16384 points; max_ba_cams 80,
+     max_ba_points 2048; OBS_CAP 32) on the same scene along
+     lateral_trajectory(step=MAPPING_STEP, yaw_rate=MAPPING_YAW) (see
+     profile_paths.py), seeded with frames 0 and 1 as
+     keyframes (io/synthetic.py::seed_keyframe_map), then process_batch
+     over 64 frames one frame per chunk: extract and track (K1, K2), the
+     keyframe policy, and for each keyframe insertion, covisibility, point
+     culling, triangulation, fuse, point statistics, two-phase local BA
+     and keyframe culling. Checks: every frame >= 30 inliers, >= 6
+     keyframes, points triangulated, every live keyframe's camera centre
+     within 5 cm of the ground truth, K1 and K2 once per frame, all outputs
+     finite. Then the path again, timed without that run's recording and
+     stage clock: ms/frame at one frame per chunk (its keyframes and
+     points compared with the checked run's) and at the default
+     track_chunk_size of 8; the checked run's ms per keyframe integration
+     split by stage; one keyframe integration from the same saved state
+     on the card and on the CPU plain path (poses within 1e-3: the f32
+     products round differently on the two devices); one bundle_adjust on
+     the final map at the default configuration; and the split of one
+     local-BA solver step at P=2048 and at P=16384
+     (profile_paths.ba_stage_split).
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last three lines are the kernel table as JSON (launches from
 the path that runs the kernel: K1 and K2 the FAST path, K3 the Harris
@@ -60,6 +82,7 @@ the card's name and power limit, and
 {"ok": true, "device": ...}.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -107,6 +130,12 @@ FAST_SCORE_MINMAX = 2 * 44 + 2 * 15 + 1
 NMS_MINMAX = 8
 TOPK_ROUND_MINMAX = 2
 PROBE_CHAINS = 16    # kChains in csrc/minmax_probe.cu
+# the mapping path: the keyframe whose integration runs again from its saved
+# state on the card and on the CPU (the n-th after the two seeded ones), and
+# the largest pose difference allowed between the two runs
+CHECK_KEYFRAME = 4
+MAX_CARD_CPU_POSE_DIFF = 1e-3
+MIN_KEYFRAMES = 6
 
 
 def device_line() -> str:
@@ -482,6 +511,218 @@ def check_small_input(dev):
     return same, err
 
 
+def system_state(s):
+    """A copy of everything a keyframe integration reads and writes."""
+    m = s.map
+    return dict(
+        map={f.name: getattr(m, f.name).clone() for f in dataclasses.fields(m)},
+        lists={k: list(getattr(s, k)) for k in ("free_kf", "free_pt")},
+        arrays={k: getattr(s, k).copy() for k in ("kf_order", "pt_forward",
+                                                  "last_pose", "velocity")},
+        scalars={k: getattr(s, k) for k in ("kf_counter", "frame_id", "state",
+                                            "last_kf_frame", "last_kf_slot",
+                                            "ref_kf_tracked")},
+        local_mask=None if s.local_mask is None else s.local_mask.clone())
+
+
+def integrate_from(snap, frame, obs, n_in, pose, device):
+    """One _integrate_keyframe on `device` from a saved state; returns the
+    system and the host-clock seconds it took."""
+    from orb_slam_tpu_torch.pipeline import system as slam
+    from orb_slam_tpu_torch.slam_map.map_state import MapState
+
+    s = slam.SLAMSystem(snap["cfg"], device=device)
+    s.map = MapState(**{k: v.to(device) for k, v in snap["map"].items()})
+    for k, v in snap["lists"].items():
+        setattr(s, k, list(v))
+    for k, v in snap["arrays"].items():
+        setattr(s, k, v.copy())
+    for k, v in snap["scalars"].items():
+        setattr(s, k, v)
+    s.local_mask = None if snap["local_mask"] is None else snap["local_mask"].to(device)
+    fr = slam.FrameData(*(t.to(device) for t in (frame.xy, frame.desc, frame.octave,
+                                                  frame.angle, frame.valid)),
+                        frame.frame_id, frame.timestamp)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    t = time.perf_counter()
+    s._integrate_keyframe(fr, obs.to(device), n_in, pose=pose)
+    sync()
+    return s, time.perf_counter() - t
+
+
+def mapping_path(dev, card, kernels, scene):
+    """Phase 9 (module docstring). Returns the K1/K2 launch counts."""
+    from orb_slam_tpu_torch.io.synthetic import lateral_trajectory
+    from orb_slam_tpu_torch.profile_paths import (
+        MAPPING_STEP, MAPPING_YAW, StageClock, ba_stage_split,
+        keyframe_center_errors, mapping_system,
+    )
+    from orb_slam_tpu_torch.slam_map.observations import OBS_CAP
+    from orb_slam_tpu_torch.solvers.local_ba import bundle_adjust
+
+    poses = lateral_trajectory(N_FRAMES + 2, step=MAPPING_STEP, yaw_rate=MAPPING_YAW)
+    frames = torch.from_numpy(np.stack([scene.render_image(p) for p in poses])).to(dev)
+    s = mapping_system(scene, poses, frames, dev)
+    cfg = s.cfg
+    print(f"mapping path: step {MAPPING_STEP} and yaw {MAPPING_YAW} rad per "
+          f"frame, {N_FRAMES} frames after "
+          f"the 2 seeded keyframes ({int(s.map.pt_valid.sum())} points), "
+          f"MapConfig({cfg.map.max_keyframes}, {cfg.map.max_points}, "
+          f"{cfg.map.n_features}), max_ba_cams {cfg.max_ba_cams}, max_ba_points "
+          f"{cfg.max_ba_points}, OBS_CAP {OBS_CAP}; the checked run one frame "
+          f"per chunk (the default is {cfg.track_chunk_size})")
+
+    # the checked run: record each frame's inliers, each integration's
+    # counts and the state before the CHECK_KEYFRAME-th integration, with a
+    # host clock on every stage
+    inliers, counts, snap = [], [], {}
+    apply_chunk, integrate = s._apply_chunk, s._integrate_keyframe
+
+    def recorded_apply(feats, xy, chunk, n, ts):
+        consumed, out = apply_chunk(feats, xy, chunk, n, ts)
+        inliers.extend(chunk.n_inliers[:consumed].tolist())
+        return consumed, out
+
+    def recorded_integrate(frame, obs, n_in, pose=None, abort=None):
+        if s.kf_counter == 2 + CHECK_KEYFRAME - 1 and not snap:
+            snap.update(system_state(s), cfg=cfg, args=(
+                frame, obs.clone(), n_in, np.array(pose)))
+        slot = integrate(frame, obs, n_in, pose, abort)
+        counts.append(dict(s.mapping_counts))
+        return slot
+
+    s._apply_chunk, s._integrate_keyframe = recorded_apply, recorded_integrate
+    stage_s = {}
+    s._stage_timer = StageClock(stage_s)
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    t = time.perf_counter()
+    out = s.process_batch(frames[2:], chunk_size=1)
+    torch.cuda.synchronize()
+    checked_s = time.perf_counter() - t
+    launches = {name: k.launches for name, k in kernels.items()}
+
+    n_kf = s.kf_counter - 2
+    created = sum(sum(c["created"]) for c in counts)
+    m = s.map
+    fid, _, c_err = keyframe_center_errors(s, poses)
+    finite = (all(np.isfinite(p).all() for p in out)
+              and bool(torch.isfinite(m.kf_pose[m.kf_valid]).all())
+              and bool(torch.isfinite(m.pt_pos[m.pt_valid]).all()))
+    print(f"mapping path: {len(out)} frames tracked, inliers min {min(inliers)} "
+          f"median {int(np.median(inliers))}; {n_kf} keyframes inserted, "
+          f"{len(fid)} live; {created} points triangulated, "
+          f"{sum(c['culled'] for c in counts)} culled, "
+          f"{sum(c['fuse_bound'] for c in counts)} features bound and "
+          f"{sum(c['merged'] for c in counts)} points merged by fuse, "
+          f"{sum(c['kf_culled'] for c in counts)} keyframes culled; "
+          f"{int(m.pt_valid.sum())} points at the end; keyframe centre error max "
+          f"{c_err.max():.4f} mean {c_err.mean():.4f} (frames "
+          f"{sorted(fid.tolist())}); launches {launches}")
+    if len(out) != N_FRAMES or min(inliers) < MIN_INLIERS:
+        raise AssertionError(f"mapping path: {len(out)} frames, inliers {inliers}")
+    if n_kf < MIN_KEYFRAMES or created == 0:
+        raise AssertionError(f"mapping path: {n_kf} keyframes, {created} points")
+    if c_err.max() > MAX_CENTER_ERR:
+        raise AssertionError(f"mapping path: keyframe centre error {c_err.max():.4f}")
+    if not finite:
+        raise AssertionError("mapping path: non-finite output")
+    expect_launches = {"K1": N_FRAMES, "K2": N_FRAMES, "K3": 0, "K4": 0}
+    if launches != expect_launches:
+        raise AssertionError(f"mapping path: launches {launches}, "
+                             f"expected {expect_launches}")
+
+    # the path timed without the recording, the stage clock and the
+    # snapshot: one frame per chunk (as checked), then the default chunk
+    timed = {}
+    for chunk in (1, cfg.track_chunk_size):
+        r = mapping_system(scene, poses, frames, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r.process_batch(frames[2:], chunk_size=chunk)
+        torch.cuda.synchronize()
+        timed[chunk] = (time.perf_counter() - t, r)
+    same = torch.equal(timed[1][1].map.kf_pose, m.kf_pose) and torch.equal(
+        timed[1][1].map.pt_pos, m.pt_pos)
+    print(f"mapping path timing on {card}: {timed[1][0] * 1e3 / N_FRAMES:.3f} "
+          f"ms/frame at one frame per chunk (not the default; keyframe poses and "
+          f"points {'bit-identical to' if same else 'DIFFERENT from'} the checked "
+          f"run's)")
+    for chunk, (dt, r) in timed.items():
+        if chunk == 1:
+            continue
+        _, _, e = keyframe_center_errors(r, poses)
+        print(f"mapping path timing on {card}: {dt * 1e3 / N_FRAMES:.3f} ms/frame "
+              f"at the default {chunk} frames per chunk ({r.kf_counter - 2} "
+              f"keyframes, centre error max {e.max():.4f} mean {e.mean():.4f})")
+
+    # the checked run's time, split by stage
+    its = np.array(s.ba_iterations)
+    per_kf = lambda v: sum(v) * 1e3 / n_kf
+    n_nb = sum(len(c["created"]) for c in counts)
+    local = sum(sum(v) for v in stage_s.values())
+    print(f"mapping path, checked run on {card}: {checked_s * 1e3 / N_FRAMES:.3f} "
+          f"ms/frame (the stage clock's syncs and the state snapshot included); "
+          f"local mapping {local * 1e3 / n_kf:.3f} ms per keyframe integration "
+          f"({n_kf} integrations)")
+    for name, v in stage_s.items():
+        extra = ""
+        if name.startswith("triangulation"):
+            extra = f", {sum(v) * 1e3 / max(n_nb, 1):.3f} ms per neighbour ({n_nb} neighbours)"
+        if name.startswith("BA phase"):
+            # ba_iterations alternates (phase 1, 0) and (0, phase 2) calls
+            n_it = its[0::2, 0] if name.endswith("1") else its[1::2, 1]
+            extra = (f", {n_it.mean():.2f} LM iterations per call, "
+                     f"{sum(v) * 1e3 / max(n_it.sum(), 1):.3f} ms per iteration")
+        print(f"    {name}: {per_kf(v):.3f} ms per keyframe integration{extra}; {card}")
+
+    # one integration from the same saved state, card and CPU
+    frame, obs, n_in, pose = snap.pop("args")
+    g, g_s = integrate_from(snap, frame, obs, n_in, pose, dev)
+    c, c_s = integrate_from(snap, frame, obs, n_in, pose, torch.device("cpu"))
+    gv, cv = g.map.kf_valid.cpu(), c.map.kf_valid
+    pose_diff = float((g.map.kf_pose.cpu() - c.map.kf_pose)[gv & cv].abs().max())
+    both = g.map.pt_valid.cpu() & c.map.pt_valid
+    pt_diff = float((g.map.pt_pos.cpu() - c.map.pt_pos)[both].abs().max())
+    print(f"card vs CPU, keyframe {CHECK_KEYFRAME} integrated from one saved state: "
+          f"max |d pose| {pose_diff:.3g}, max |d point| {pt_diff:.3g} over "
+          f"{int(both.sum())} points live in both, validity flips "
+          f"{int((g.map.pt_valid.cpu() != c.map.pt_valid).sum())}, kf_obs differing "
+          f"{float((g.map.kf_obs.cpu() != c.map.kf_obs).float().mean()):.5f}; "
+          f"counts card {g.mapping_counts}, CPU {c.mapping_counts}; BA iterations "
+          f"card {g.ba_iterations}, CPU {c.ba_iterations}; {g_s * 1e3:.1f} ms on "
+          f"the card ({card}), {c_s * 1e3:.1f} ms on the CPU")
+    if not pose_diff <= MAX_CARD_CPU_POSE_DIFF:
+        raise AssertionError(f"card vs CPU keyframe poses differ by {pose_diff}")
+
+    # BA alone on the final map around the newest keyframe, chosen as
+    # _local_mapping chooses, at the default configuration
+    kf = s.last_kf_slot
+    cam_opt, pt_opt = s._local_ba_sets(m, kf, s._covisible_neighbors(m, kf)[2])
+    ba_its = []
+    kw = dict(max_opt_cams=cfg.max_ba_cams, max_opt_pts=cfg.max_ba_points,
+              scale_factor=cfg.map.scale_factor)
+    bundle_adjust(m, s.K_dev, cam_opt, pt_opt, **kw)            # warmup
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    st, _, _ = bundle_adjust(m, s.K_dev, cam_opt, pt_opt, iterations=ba_its, **kw)
+    torch.cuda.synchronize()
+    ba_ms = (time.perf_counter() - t) * 1e3
+    if not torch.isfinite(st.kf_pose).all():
+        raise AssertionError("bundle_adjust: non-finite poses")
+    print(f"bundle_adjust alone on the final map ({int(cam_opt.sum())} cameras, "
+          f"{int(pt_opt.sum())} points; iters1 5, iters2 10, Kl {cfg.max_ba_cams}, "
+          f"Pl {cfg.max_ba_points}): {ba_ms:.3f} ms, LM iterations {ba_its[0]}; {card}")
+    for P in (cfg.max_ba_points, cfg.map.max_points):
+        split = ba_stage_split(dev, P)
+        print(f"BA solver step at P={P}, O=32, Kl=80 (scripts/profile_ba.py's "
+              f"inputs, CUDA-event medians): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()) + f"; {card}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -713,6 +954,8 @@ def main():
               f"{[round(d * 1e3, 2) for d in ts]} ms per {N_FRAMES} frames, "
               f"median {dt * 1e3 / N_FRAMES:.3f} ms/frame = "
               f"{N_FRAMES / dt:.2f} frames/s")
+
+    mapping_path(dev, card, kernels, scene)
 
     launches = {"K1": fast_launches["K1"], "K2": fast_launches["K2"],
                 "K3": harris_launches["K3"], "K4": cell_launches["K4"]}

@@ -5,8 +5,11 @@ point cloud, `K` and `render_image`; the ring layout is not ported) and
 `lateral_trajectory` (:257-267),
 without JAX, so a script on a machine without JAX has an image source.
 Added here: `billboard_depth`, the depth of the front-most rendered
-square under each pixel, and `seed_map`, which builds the map the port's
-main path tracks against (chip_smoke.py and tests/test_torch_slice.py).
+square under each pixel, `seed_map`, which builds the map the port's
+main path tracks against (chip_smoke.py and tests/test_torch_slice.py),
+and `seed_keyframe_map`, a map as the two-view initialisation leaves it
+(two keyframes and the points both see), from which the port's SLAMSystem
+tracks and maps.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 from orb_slam_tpu_torch.device import require_device
 from orb_slam_tpu_torch.geometry.camera import CameraModel, undistort_points
 from orb_slam_tpu_torch.slam_map.map_state import (
-    MapConfig, MapState, add_points, empty_map,
+    MapConfig, MapState, add_points, empty_map, insert_keyframe,
 )
 
 
@@ -218,3 +221,57 @@ def seed_map(scene: SyntheticScene, T_cw, xy, desc_i32, octave, valid,
     pt_max[:n_kp], pt_min[:n_kp], pt_normal[:n_kp] = max_dist, min_dist, normal
     return state.replace(pt_max_dist=as_t(pt_max), pt_min_dist=as_t(pt_min),
                          pt_normal=as_t(pt_normal))
+
+
+def seed_keyframe_map(scene: SyntheticScene, poses, features, K,
+                      cfg: MapConfig, device="cuda", p_local: int = 4096):
+    """A map as the two-view initialisation leaves it: frames 0 and 1 as
+    keyframes 0 and 1, and points seen by both, from which a SLAMSystem
+    tracks and maps.
+
+    poses: the two frames' T_cw [2, 4, 4]; features: their ORBFeatures
+    (raw keypoints, descriptors, octave, angle, validity); K [3, 3]. The
+    points are seed_map's with no extra points: every valid keypoint of
+    frame 0 on a rendered square, at that square's depth, with its
+    descriptor, bound to its feature of keyframe 0. Frame 1 is tracked
+    against them from its pose (track_frame); its optimized pose and
+    inlier bindings make keyframe 1, whose spanning parent is keyframe 0.
+    The point statistics are then refreshed from both observations.
+    Returns (state, the number of points, keyframe 1's inliers)."""
+    from orb_slam_tpu_torch.pipeline.track_kernels import track_frame
+    from orb_slam_tpu_torch.slam_map.observations import refresh_point_stats
+
+    device = require_device(device)
+    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy, *scene.dist,
+                         width=scene.width, height=scene.height)
+    host = [{k: np.asarray(torch.as_tensor(getattr(f, k)).cpu())
+             for k in ("xy", "desc_i32", "octave", "angle", "valid")}
+            for f in features]
+    T0 = np.asarray(poses[0], np.float32)
+    f0 = host[0]
+    state = seed_map(scene, T0, f0["xy"], f0["desc_i32"], f0["octave"],
+                     f0["valid"], cfg, device=device, n_extra=0)
+    keep = f0["valid"] & np.isfinite(scene.billboard_depth(T0, f0["xy"]))
+    n = int(keep.sum())
+    obs0 = np.full(len(keep), -1, np.int32)
+    obs0[keep] = np.arange(n, dtype=np.int32)
+    as_t = lambda a: torch.as_tensor(a).to(device)
+    und = [undistort_points(camera, as_t(f["xy"])) for f in host]
+    K = as_t(np.asarray(K, np.float32))
+
+    def keyframe(state, slot, pose, f, xy, obs, parent):
+        return insert_keyframe(state, slot, pose, slot, xy, as_t(f["octave"]),
+                               as_t(f["angle"]), as_t(f["desc_i32"]),
+                               as_t(f["valid"]), obs, parent)
+
+    state = keyframe(state, 0, as_t(T0), f0, und[0], as_t(obs0), -1)
+    f1 = host[1]
+    res = track_frame(state, und[1], as_t(f1["desc_i32"]), as_t(f1["octave"]),
+                      as_t(f1["valid"]), as_t(np.asarray(poses[1], np.float32)),
+                      K, p_local=min(p_local, cfg.max_points),
+                      width=scene.width,
+                      height=scene.height, scale_factor=cfg.scale_factor,
+                      n_levels=cfg.n_levels)
+    state = keyframe(state, 1, res.pose, f1, und[1], res.obs, 0)
+    state = refresh_point_stats(state, cfg.scale_factor, cfg.n_levels)
+    return state, n, int(res.n_inliers)

@@ -1,8 +1,9 @@
 """MapState: the whole SLAM map as one dataclass of fixed-shape tensors.
 
 Port of orb_slam_tpu/slam_map/map_state.py: `MapConfig` (:18-32),
-`MapState` (:35-98), `empty_map` (:101-125), `insert_keyframe` (:128-144)
-and `add_points` (:147-174). Slot pools with validity masks, as in JAX.
+`MapState` (:35-98), `empty_map` (:101-125), `insert_keyframe` (:128-144),
+`add_points` (:147-174), `remove_points` (:169-177) and `remove_keyframe`
+(:180-189). Slot pools with validity masks, as in JAX.
 The update functions return a new MapState whose changed fields are new
 tensors, so a state a caller holds never changes under it. Descriptors
 are int32 bit patterns of the JAX uint32 words.
@@ -140,3 +141,19 @@ def add_points(state: MapState, slots, positions, desc, ref_kf, first_kf,
         pt_visible=_set(state.pt_visible, rows, 1),
         pt_found=_set(state.pt_found, rows, 1),
     )
+
+
+def remove_points(state: MapState, kill_mask) -> MapState:
+    """Cull points: clear validity and unbind every observation
+    (MapPoint::SetBadFlag, MapPoint.cc:105-122)."""
+    obs = state.kf_obs
+    bound_dead = (obs >= 0) & kill_mask[obs.clamp(min=0).long()]
+    return state.replace(pt_valid=state.pt_valid & ~kill_mask,
+                         kf_obs=torch.where(bound_dead, -1, obs))
+
+
+def remove_keyframe(state: MapState, slot: int) -> MapState:
+    """Cull a keyframe: clear validity and its observations; the host
+    re-parents its spanning-tree children (KeyFrame::SetBadFlag)."""
+    return state.replace(kf_valid=_set(state.kf_valid, slot, False),
+                         kf_obs=_set(state.kf_obs, slot, -1))

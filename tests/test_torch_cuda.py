@@ -366,3 +366,194 @@ def test_main_path_on_card_matches_cpu(dev):
     assert same >= 0.98, same
     torch.testing.assert_close(cg.pose.cpu(), cc.pose, atol=1e-3, rtol=0)
     assert (cg.n_inliers.cpu() - cc.n_inliers).abs().max() <= 6
+
+
+# --- the mapping modules: each on the card against its CPU run ---------------
+# The map is the port's own after a short mapping run on the CPU (320x240,
+# 300 features, 4 levels, 12 frames). Integers must be equal; floats within
+# the CPU parity tests' tolerances (normals 1e-5, distance bands 1e-5
+# relative, triangulated points 1e-4 of their norm, BA poses 5e-5 and points
+# within bounds set from readings, see BA_REL_SEEN3).
+
+
+@pytest.fixture(scope="module")
+def mapped():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return mapped_system()
+
+
+def mapped_system():
+    """(the port's SLAMSystem after a 12-frame mapping run on the CPU, K)."""
+    from orb_slam_tpu_torch.pipeline import system as slam
+    from orb_slam_tpu_torch.profile_paths import start_working
+
+    W, H, f = 320, 240, 250.0
+    scene = SyntheticScene(n_points=800, width=W, height=H, fx=f, fy=f, cx=W / 2,
+                           cy=H / 2)
+    poses = lateral_trajectory(12, step=0.04)
+    frames = torch.from_numpy(np.stack([scene.render_image(p) for p in poses]))
+    cfg = slam.SlamConfig(camera=CameraModel(f, f, W / 2, H / 2, width=W, height=H),
+                          orb=ORBConfig(n_features=300, n_levels=4),
+                          map=MapConfig(max_keyframes=16, max_points=2048,
+                                        n_features=300, n_levels=4))
+    s = slam.SLAMSystem(cfg, device="cpu")
+    start_working(s, scene, poses, frames)
+    s.process_batch(frames[2:])
+    return s, torch.from_numpy(scene.K)
+
+
+def on(dev, state):
+    import dataclasses
+    return state.replace(**{f.name: getattr(state, f.name).to(dev)
+                            for f in dataclasses.fields(state)})
+
+
+def assert_states_equal(a, b):
+    import dataclasses
+    for f in dataclasses.fields(a):
+        assert torch.equal(getattr(a, f.name).cpu(), getattr(b, f.name).cpu()), f.name
+
+
+def test_covisibility_and_observations_on_card(dev, mapped):
+    from orb_slam_tpu_torch.slam_map import covisibility as cv
+    from orb_slam_tpu_torch.slam_map import observations as ob
+
+    s, _ = mapped
+    c, g = s.map, on(dev, s.map)
+    for fn in (cv.incidence_matrix, cv.covisibility_weights, cv.observation_counts):
+        assert torch.equal(fn(g).cpu(), fn(c)), fn.__name__
+    assert torch.equal(cv.local_point_mask(g, s.last_kf_slot).cpu(),
+                       cv.local_point_mask(c, s.last_kf_slot))
+    for a, b in zip(ob.observation_table(g), ob.observation_table(c)):
+        assert torch.equal(a.cpu(), b)
+    rg, rc = ob.refresh_point_stats(g), ob.refresh_point_stats(c)
+    assert torch.equal(rg.pt_desc.cpu(), rc.pt_desc)
+    assert torch.equal(rg.pt_ref_kf.cpu(), rc.pt_ref_kf)
+    torch.testing.assert_close(rg.pt_normal.cpu(), rc.pt_normal, atol=1e-5, rtol=0)
+    for name in ("pt_min_dist", "pt_max_dist"):
+        torch.testing.assert_close(getattr(rg, name).cpu(), getattr(rc, name),
+                                   rtol=1e-5, atol=0)
+
+
+def test_mapping_kernels_on_card(dev, mapped):
+    from orb_slam_tpu_torch.pipeline import mapping_kernels as mk
+
+    s, K = mapped
+    c, g = s.map, on(dev, s.map)
+    live = torch.nonzero(c.kf_valid)[:, 0].tolist()
+    a, b = live[-1], live[-2]
+    tc = mk.triangulate_new_points(c, a, b, K)
+    tg = mk.triangulate_new_points(g, a, b, K.to(dev))
+    assert torch.equal(tg.valid.cpu(), tc.valid) and torch.equal(tg.feat_b.cpu(), tc.feat_b)
+    v = tc.valid
+    rel = (tg.pos.cpu()[v] - tc.pos[v]).norm(dim=-1) / tc.pos[v].norm(dim=-1)
+    assert rel.numel() == 0 or float(rel.max()) < 1e-4
+    free = torch.nonzero(~c.pt_valid)[:64, 0].to(torch.int32)
+    mc, nc = mk.insert_new_points(c, a, b, tc, free)
+    mg, ng = mk.insert_new_points(g, a, b, tc._replace(
+        **{k: getattr(tc, k).to(dev) for k in tc._fields}), free.to(dev))
+    assert int(ng) == int(nc)
+    assert_states_equal(mg, mc)
+    for src, dst in ((a, b), (b, a)):
+        oc = mk.fuse_into_keyframe(c, src, dst, K, width=320, height=240, n_levels=4)
+        og = mk.fuse_into_keyframe(g, src, dst, K.to(dev), width=320, height=240,
+                                   n_levels=4)
+        assert_states_equal(og[0], oc[0])
+        assert [int(x) for x in og[1:3]] == [int(x) for x in oc[1:3]]
+        assert torch.equal(og[3].cpu(), oc[3])
+    for x, y in zip(mk.point_cull_stats(g, 9), mk.point_cull_stats(c, 9)):
+        assert torch.equal(x.cpu(), y)
+    for kf in live:
+        assert [float(x) for x in mk.keyframe_redundancy(g, kf)] == [
+            float(x) for x in mk.keyframe_redundancy(c, kf)]
+
+
+def ba_card_vs_cpu(dev, s, K, pt_opt):
+    """One bundle_adjust of the mapped map (max_opt_cams 16, max_opt_pts
+    1024) on the CPU and on the card with the points pt_opt: ({device:
+    (state, outlier, table, iterations)}, readings), the readings the
+    largest pose difference and, over the points, the largest difference
+    over the point's distance (at least 1)."""
+    from orb_slam_tpu_torch.solvers import local_ba as ba
+
+    c = s.map
+    cam_opt = c.kf_valid.clone()
+    order = np.where(s.kf_order >= 0, s.kf_order, 10**9)
+    cam_opt[torch.from_numpy(np.argsort(order)[:2].copy())] = False
+    out = {}
+    for d in ("cpu", str(dev)):
+        its = []
+        out[d] = ba.bundle_adjust(on(d, c), K.to(d), cam_opt.to(d), pt_opt.to(d),
+                                  max_opt_cams=16, max_opt_pts=1024,
+                                  iterations=its) + (its,)
+    sc, sg = out["cpu"][0], out[str(dev)][0]
+    d = (sg.pt_pos.cpu() - sc.pt_pos)[pt_opt].abs().amax(1)
+    return out, dict(
+        pose=float((sg.kf_pose.cpu() - sc.kf_pose).abs().max()),
+        rel=float((d / sc.pt_pos[pt_opt].norm(dim=1).clamp(min=1.0)).max()))
+
+
+# The map is metric, its points 2 to 146 m out, where the CPU tests' maps
+# have unit scale, so a point's difference is taken over its distance (the
+# absolute 5e-4 of the CPU tests failed at 5.32e-4 on a point 17 m out).
+# Readings on an NVIDIA H100 80GB HBM3 (the __main__ block below, under this
+# directory's SLAM_OBS_CAP=16): with the points seen by 3+ keyframes, poses
+# 2.39e-7 and points 2.81e-5 of their distance; with every live point, as
+# the mapping path optimizes them, poses 8.87e-5 and points 2.17e-4, after
+# the same LM iterations on both devices: the steps pass through the
+# ill-conditioned 3x3 blocks of the points seen once, whose rounding also
+# separates one JAX and one port step on the CPU by 3.0e-4
+# (tests/test_torch_local_ba.py). Each bound sits just above its reading;
+# the every-point case's pose bound is looser than the CPU tests' 5e-5.
+BA_REL_SEEN3 = 3.5e-5
+BA_POSE_ALL, BA_REL_ALL = 1e-4, 2.5e-4
+
+
+def test_bundle_adjust_on_card(dev, mapped):
+    from orb_slam_tpu_torch.slam_map.map_state import remove_keyframe, remove_points
+    from orb_slam_tpu_torch.slam_map.observations import observation_table
+    from orb_slam_tpu_torch.solvers import local_ba as ba
+
+    s, K = mapped
+    c = s.map
+    pt_opt = c.pt_valid & (observation_table(c)[2].sum(1) >= 3)
+    out, r = ba_card_vs_cpu(dev, s, K, pt_opt)
+    (sc, oc, tc, ic), (sg, og, tg, ig) = out["cpu"], out[str(dev)]
+    assert r["pose"] <= 5e-5 and r["rel"] <= BA_REL_SEEN3, r
+    assert torch.equal(og.cpu(), oc) and ig == ic
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(tg, tc))
+    for kill in (True, False):
+        a = ba.apply_edge_outliers(on(dev, c), og, *tg, kill_starved=kill)
+        b = ba.apply_edge_outliers(c, oc, *tc, kill_starved=kill)
+        assert torch.equal(a.kf_obs.cpu(), b.kf_obs)
+        assert torch.equal(a.pt_valid.cpu(), b.pt_valid)
+    mask = torch.from_numpy(np.random.default_rng(0).random(c.pt_valid.shape[0]) < 0.2)
+    assert_states_equal(remove_keyframe(remove_points(on(dev, c), mask.to(dev)), 1),
+                        remove_keyframe(remove_points(c, mask), 1))
+
+
+def test_bundle_adjust_every_point_on_card(dev, mapped):
+    s, K = mapped
+    out, r = ba_card_vs_cpu(dev, s, K, s.map.pt_valid)
+    assert r["pose"] <= BA_POSE_ALL and r["rel"] <= BA_REL_ALL, r
+    assert torch.equal(out[str(dev)][1].cpu(), out["cpu"][1])
+
+
+if __name__ == "__main__":
+    # The readings the BA bounds above rest on, under the observation cap
+    # tests/conftest.py sets:
+    #   SLAM_OBS_CAP=16 PYTHONPATH=. python3 tests/test_torch_cuda.py
+    from orb_slam_tpu_torch.slam_map.observations import OBS_CAP, observation_table
+
+    assert OBS_CAP == 16, "run with SLAM_OBS_CAP=16, as the tests run"
+    s, K = mapped_system()
+    c = s.map
+    n_obs = observation_table(c)[2].sum(1)
+    for name, pts in (("seen by 3+ keyframes", c.pt_valid & (n_obs >= 3)),
+                      ("every live point", c.pt_valid)):
+        out, r = ba_card_vs_cpu(torch.device("cuda", 0), s, K, pts)
+        print(f"bundle_adjust card vs CPU, {int(pts.sum())} points {name}: "
+              f"poses {r['pose']:.3g}, points {r['rel']:.3g} of their distance; "
+              f"outliers equal {torch.equal(out['cuda:0'][1].cpu(), out['cpu'][1])}; "
+              f"LM iterations CPU {out['cpu'][3]}, card {out['cuda:0'][3]}")
