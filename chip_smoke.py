@@ -3,7 +3,8 @@ hand-written kernels, holds each against its plain PyTorch version at
 main-path shapes, then drives the port's three detection paths over 64
 frames: the FAST extract-and-track main path, the Harris
 (nScoreType=0) extract-and-track path built from a settings file, and the
-cell-fused detector.
+cell-fused detector; then the mapping path from a seeded map and the
+whole system from raw frames through its own two-view initialisation.
 
     python3 chip_smoke.py
 
@@ -58,13 +59,17 @@ Phases (any failure raises and the exit code is non-zero):
      lateral_trajectory(step=MAPPING_STEP, yaw_rate=MAPPING_YAW) (see
      profile_paths.py), seeded with frames 0 and 1 as
      keyframes (io/synthetic.py::seed_keyframe_map), then process_batch
-     over 64 frames one frame per chunk: extract and track (K1, K2), the
-     keyframe policy, and for each keyframe insertion, covisibility, point
-     culling, triangulation, fuse, point statistics, two-phase local BA
-     and keyframe culling. Checks: every frame >= 30 inliers, >= 6
-     keyframes, points triangulated, every live keyframe's camera centre
-     within 5 cm of the ground truth, K1 and K2 once per frame, all outputs
-     finite. Then the path again, timed without that run's recording and
+     over 64 frames one frame per chunk, which routes each frame through
+     `process` (make_frame, then `_track`): extract and track (K1, K2),
+     the keyframe policy, and for each keyframe insertion, covisibility,
+     point culling, triangulation, fuse, point statistics, two-phase local
+     BA and keyframe culling. Checks: every frame >= 30 inliers, >= 6
+     keyframes, points triangulated, the live keyframes' ATE after a Sim3
+     alignment at most 2% of the ground-truth path length (profile_paths.
+     keyframe_ate), and as a guard on this one seeded scene every live
+     keyframe's camera centre within 5 cm of the ground truth, K1 and K2
+     once per frame, all outputs finite; it prints the keyframes of this
+     scene's recorded baseline (PERF.md section 6) beside its own. Then the path again, timed without that run's recording and
      stage clock: ms/frame at one frame per chunk (its keyframes and
      points compared with the checked run's) and at the default
      track_chunk_size of 8; the checked run's ms per keyframe integration
@@ -77,7 +82,8 @@ Phases (any failure raises and the exit code is non-zero):
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last three lines are the kernel table as JSON (launches from
 the path that runs the kernel: K1 and K2 the FAST path, K3 the Harris
-path, K4 the cell-fused run; `minmax_floor_ms` for the stencil kernels),
+path, K4 the cell-fused run; `init_path_launches` those of phase 10;
+`minmax_floor_ms` for the stencil kernels),
 the card's name and power limit, and
 {"ok": true, "device": ...}.
 """
@@ -136,6 +142,22 @@ PROBE_CHAINS = 16    # kChains in csrc/minmax_probe.cu
 CHECK_KEYFRAME = 4
 MAX_CARD_CPU_POSE_DIFF = 1e-3
 MIN_KEYFRAMES = 6
+# the mapping runs' correctness: the keyframe ATE after a Sim3 alignment
+# (the monocular map's scale is its own) at most this share of the
+# ground-truth path length; the init path initialised within INIT_WITHIN
+# frames and tracking at least MIN_TRACKED_SHARE of the frames after
+MAX_ATE_SHARE = 0.02
+INIT_WITHIN = 10
+MIN_TRACKED_SHARE = 0.9
+# initialize_two_view on the card against the CPU, from the same matches
+# and minimal sets: the largest |dR| and |dt| (unit t) allowed and the
+# least share of rows whose is_triangulated agrees. The CPU readings of
+# the port against JAX on a small-parallax pair: R 2.7e-6, t 3.7e-4
+# (tests/test_torch_init_system.py): t is an f32 eigenvector of a Gram
+# matrix and moves with the order of its sums
+MAX_TWO_VIEW_DR = 1e-3
+MAX_TWO_VIEW_DT = 1e-2
+MIN_TRI_AGREE = 0.99
 
 
 def device_line() -> str:
@@ -556,7 +578,7 @@ def mapping_path(dev, card, kernels, scene):
     from orb_slam_tpu_torch.io.synthetic import lateral_trajectory
     from orb_slam_tpu_torch.profile_paths import (
         MAPPING_STEP, MAPPING_YAW, StageClock, ba_stage_split,
-        keyframe_center_errors, mapping_system,
+        keyframe_ate, keyframe_center_errors, mapping_system,
     )
     from orb_slam_tpu_torch.slam_map.observations import OBS_CAP
     from orb_slam_tpu_torch.solvers.local_ba import bundle_adjust
@@ -573,16 +595,16 @@ def mapping_path(dev, card, kernels, scene):
           f"{cfg.max_ba_points}, OBS_CAP {OBS_CAP}; the checked run one frame "
           f"per chunk (the default is {cfg.track_chunk_size})")
 
-    # the checked run: record each frame's inliers, each integration's
-    # counts and the state before the CHECK_KEYFRAME-th integration, with a
-    # host clock on every stage
+    # the checked run: record each tracked frame's inliers (the keyframe
+    # test reads them once per tracked frame), each integration's counts
+    # and the state before the CHECK_KEYFRAME-th integration, with a host
+    # clock on every stage
     inliers, counts, snap = [], [], {}
-    apply_chunk, integrate = s._apply_chunk, s._integrate_keyframe
+    need, integrate = s._need_new_keyframe, s._integrate_keyframe
 
-    def recorded_apply(feats, xy, chunk, n, ts):
-        consumed, out = apply_chunk(feats, xy, chunk, n, ts)
-        inliers.extend(chunk.n_inliers[:consumed].tolist())
-        return consumed, out
+    def recorded_need(frame_id, n_in):
+        inliers.append(n_in)
+        return need(frame_id, n_in)
 
     def recorded_integrate(frame, obs, n_in, pose=None, abort=None):
         if s.kf_counter == 2 + CHECK_KEYFRAME - 1 and not snap:
@@ -592,7 +614,7 @@ def mapping_path(dev, card, kernels, scene):
         counts.append(dict(s.mapping_counts))
         return slot
 
-    s._apply_chunk, s._integrate_keyframe = recorded_apply, recorded_integrate
+    s._need_new_keyframe, s._integrate_keyframe = recorded_need, recorded_integrate
     stage_s = {}
     s._stage_timer = StageClock(stage_s)
     torch.cuda.synchronize()
@@ -608,7 +630,8 @@ def mapping_path(dev, card, kernels, scene):
     created = sum(sum(c["created"]) for c in counts)
     m = s.map
     fid, _, c_err = keyframe_center_errors(s, poses)
-    finite = (all(np.isfinite(p).all() for p in out)
+    ate, scale, length, _ = keyframe_ate(s, poses)
+    finite = (all(p is not None and np.isfinite(p).all() for p in out)
               and bool(torch.isfinite(m.kf_pose[m.kf_valid]).all())
               and bool(torch.isfinite(m.pt_pos[m.pt_valid]).all()))
     print(f"mapping path: {len(out)} frames tracked, inliers min {min(inliers)} "
@@ -618,13 +641,20 @@ def mapping_path(dev, card, kernels, scene):
           f"{sum(c['fuse_bound'] for c in counts)} features bound and "
           f"{sum(c['merged'] for c in counts)} points merged by fuse, "
           f"{sum(c['kf_culled'] for c in counts)} keyframes culled; "
-          f"{int(m.pt_valid.sum())} points at the end; keyframe centre error max "
-          f"{c_err.max():.4f} mean {c_err.mean():.4f} (frames "
-          f"{sorted(fid.tolist())}); launches {launches}")
-    if len(out) != N_FRAMES or min(inliers) < MIN_INLIERS:
+          f"{int(m.pt_valid.sum())} points at the end; keyframe ATE after a Sim3 "
+          f"alignment {ate:.5f} m (scale {scale:.5f}) on a {length:.4f} m path, "
+          f"{ate / length:.5f} of it; keyframe centre error max {c_err.max():.4f} "
+          f"mean {c_err.mean():.4f} (frames {sorted(fid.tolist())}; the recorded "
+          f"baseline of this scene, PERF.md: 19 keyframes inserted, 17 live, centre "
+          f"error max 0.0212 mean 0.0089); launches {launches}")
+    if len(out) != N_FRAMES or len(inliers) != N_FRAMES or min(inliers) < MIN_INLIERS:
         raise AssertionError(f"mapping path: {len(out)} frames, inliers {inliers}")
     if n_kf < MIN_KEYFRAMES or created == 0:
         raise AssertionError(f"mapping path: {n_kf} keyframes, {created} points")
+    if not ate <= MAX_ATE_SHARE * length:
+        raise AssertionError(f"mapping path: keyframe ATE {ate:.5f} over "
+                             f"{MAX_ATE_SHARE} of the {length:.4f} m path")
+    # a guard on this one seeded scene, not a check of the path (ROADMAP C8)
     if c_err.max() > MAX_CENTER_ERR:
         raise AssertionError(f"mapping path: keyframe centre error {c_err.max():.4f}")
     if not finite:
@@ -721,6 +751,178 @@ def mapping_path(dev, card, kernels, scene):
               f"inputs, CUDA-event medians): "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()) + f"; {card}")
     return launches
+
+
+def init_path(dev, card, kernels, scene):
+    """Phase 10 (module docstring). Returns (K1..K4 launches of the run,
+    the inputs of the successful initialize_two_view call)."""
+    from orb_slam_tpu_torch.io.synthetic import lateral_trajectory
+    from orb_slam_tpu_torch.pipeline import system as slam
+    from orb_slam_tpu_torch.profile_paths import (
+        MAPPING_STEP, MAPPING_YAW, init_system, keyframe_ate,
+    )
+
+    n = N_FRAMES + 2
+    poses = lateral_trajectory(n, step=MAPPING_STEP, yaw_rate=MAPPING_YAW)
+    frames = torch.from_numpy(np.stack([scene.render_image(p) for p in poses])).to(dev)
+    s = init_system(scene, dev)
+    # count the extractions (K1 runs once in each) and record the
+    # two-view calls and the initialisation
+    extractions = [0]
+    for ex in (s.extractor, s.extractor_init):
+        def counted(img, forward=ex.forward):
+            extractions[0] += 1
+            return forward(img)
+        ex.forward = counted
+    calls, init = [], {}
+    two_view = slam.initialize_two_view
+
+    def recorded_two_view(x1, x2, valid, K, **kw):
+        res = two_view(x1, x2, valid, K, **kw)
+        calls.append(((x1.clone(), x2.clone(), valid.clone(), K, kw["idx"].clone()), res))
+        return res
+
+    try_init = s._try_initialize
+
+    def recorded_init(frame):
+        ok = try_init(frame)
+        if ok:
+            init.update(frame=frame.frame_id, points=s.ref_kf_tracked,
+                        homography=bool(calls[-1][1].used_homography),
+                        attempts=len(calls))
+        return ok
+
+    s._try_initialize = recorded_init
+    slam.initialize_two_view = recorded_two_view
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    t = time.perf_counter()
+    try:
+        out = s.process_batch(frames)
+    finally:
+        slam.initialize_two_view = two_view
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = {name: k.launches for name, k in kernels.items()}
+
+    if not init or init["frame"] >= INIT_WITHIN:
+        raise AssertionError(f"init path: not initialised within {INIT_WITHIN} "
+                             f"frames ({init})")
+    after = out[init["frame"] + 1:]
+    tracked = sum(p is not None for p in after)
+    n_kf = s.kf_counter
+    ate, scale, length, fid = keyframe_ate(s, poses)
+    m = s.map
+    finite = (all(np.isfinite(p).all() for p in out if p is not None)
+              and bool(torch.isfinite(m.kf_pose[m.kf_valid]).all())
+              and bool(torch.isfinite(m.pt_pos[m.pt_valid]).all()))
+    print(f"init path: {n} raw frames 640x480 through process_batch at the default "
+          f"chunk of {s.cfg.track_chunk_size}, ORBConfig() (2000 features until "
+          f"WORKING), loop closing and relocalisation off: initialised at frame "
+          f"{init['frame']} after {init['attempts']} two-view attempts "
+          f"(used_homography {init['homography']}, {init['points']} points "
+          f"triangulated); {tracked} of the {len(after)} frames after it tracked, "
+          f"lost_count {s.lost_count}; {n_kf} keyframes inserted, {len(fid)} live, "
+          f"{int(m.pt_valid.sum())} points; keyframe ATE after a Sim3 alignment "
+          f"{ate:.5f} (scale {scale:.5f}) on a {length:.4f} m path, "
+          f"{ate / length:.5f} of it; {extractions[0]} extractions; launches "
+          f"{launches}; {run_s * 1e3 / n:.3f} ms/frame on {card}")
+    if tracked < MIN_TRACKED_SHARE * len(after):
+        raise AssertionError(f"init path: {tracked} of {len(after)} frames tracked")
+    if n_kf < MIN_KEYFRAMES:
+        raise AssertionError(f"init path: {n_kf} keyframes")
+    if not ate <= MAX_ATE_SHARE * length:
+        raise AssertionError(f"init path: keyframe ATE {ate:.5f} over "
+                             f"{MAX_ATE_SHARE} of the {length:.4f} m path")
+    if not finite:
+        raise AssertionError("init path: non-finite output")
+    # K1 once in every extraction (every frame once, and again each frame
+    # a chunk extracted past a keyframe or a weak frame), K2 at least once
+    # per tracked frame
+    if (launches["K1"] != extractions[0] or extractions[0] < n
+            or launches["K2"] < tracked or launches["K3"] or launches["K4"]):
+        raise AssertionError(f"init path: launches {launches}, {extractions[0]} "
+                             f"extractions, {tracked} frames tracked")
+    good = [c for c in calls if bool(c[1].success)]
+    return launches, good[-1][0]
+
+
+def event_ms(fn, reps=10):
+    """Median CUDA-event ms of whole fn() calls after a warmup (the
+    torch.linalg calls read their info on the host: no graph capture)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def two_view_phases(args, card):
+    """initialize_two_view on the init path's successful inputs: the card
+    against the CPU on the same matches and minimal sets, then timed on
+    the card (CUDA events around whole calls) with its torch.linalg
+    parts split out: the 400 minimal fits (200 H, 200 F), the two rounds
+    of refit and re-gate, and the 12-way _check_rt."""
+    from orb_slam_tpu_torch.solvers import two_view as tv
+
+    x1, x2, valid, K, idx = args
+    card_res = tv.initialize_two_view(x1, x2, valid, K, idx=idx)
+    cpu = torch.device("cpu")
+    cpu_res = tv.initialize_two_view(*(a.to(cpu) for a in (x1, x2, valid, K)),
+                                      idx=idx.to(cpu))
+    dR = float((card_res.R21.cpu() - cpu_res.R21).abs().max())
+    dt = float((card_res.t21.cpu() - cpu_res.t21).abs().max())
+    agree = float((card_res.is_triangulated.cpu() == cpu_res.is_triangulated)
+                  .float().mean())
+    same = (bool(card_res.success) == bool(cpu_res.success)
+            and bool(card_res.used_homography) == bool(cpu_res.used_homography))
+    print(f"initialize_two_view card vs CPU ({x1.shape[0]} rows, "
+          f"{int(valid.sum())} matches, the same 200 sets): success "
+          f"{bool(card_res.success)}/{bool(cpu_res.success)}, used_homography "
+          f"{bool(card_res.used_homography)}/{bool(cpu_res.used_homography)}, "
+          f"max |dR| {dR:.3g}, max |dt| {dt:.3g}, is_triangulated agrees on "
+          f"{agree:.5f} of the rows, n_good {int(card_res.n_good)}/"
+          f"{int(cpu_res.n_good)}")
+    if not (same and dR <= MAX_TWO_VIEW_DR and dt <= MAX_TWO_VIEW_DT
+            and agree >= MIN_TRI_AGREE):
+        raise AssertionError("initialize_two_view: the card and the CPU disagree")
+
+    n1, T1 = tv._normalize_points(x1, valid)
+    n2, T2 = tv._normalize_points(x2, valid)
+    inF = inH = valid
+
+    def fits():
+        return tv._dlt_h(n1[idx], n2[idx]), tv._dlt_f(n1[idx], n2[idx])
+
+    def refits():
+        for _ in range(2):
+            F = T2.T @ tv._refit_f(n1, n2, inF.float()) @ T1
+            tv._score_f(F, x1, x2, valid)
+            H = tv._inv(T2) @ tv._refit_h(n1, n2, inH.float()) @ T1
+            tv._score_h(H, x1, x2, valid)
+
+    Rs, ts = card_res.R21.expand(12, 3, 3), card_res.t21.expand(12, 3)
+    inl = valid.expand(12, -1)
+    ms = {"whole call": event_ms(lambda: tv.initialize_two_view(x1, x2, valid, K,
+                                                                idx=idx)),
+          "400 minimal fits (SVD)": event_ms(fits),
+          "2 refits and re-gates (eigh, SVD, inv)": event_ms(refits),
+          "12-way _check_rt (eigh per point)": event_ms(
+              lambda: tv._check_rt(Rs, ts, x1, x2, K, inl))}
+    print(f"initialize_two_view timing at {x1.shape[0]} rows (CUDA events around "
+          f"whole calls, medians of 10): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f"; the three parts {sum(list(ms.values())[1:]) / ms['whole call']:.3f} "
+          f"of the whole; {card}")
+    return ms
 
 
 def main():
@@ -956,6 +1158,8 @@ def main():
               f"{N_FRAMES / dt:.2f} frames/s")
 
     mapping_path(dev, card, kernels, scene)
+    init_launches, two_view_args = init_path(dev, card, kernels, scene)
+    two_view_phases(two_view_args, card)
 
     launches = {"K1": fast_launches["K1"], "K2": fast_launches["K2"],
                 "K3": harris_launches["K3"], "K4": cell_launches["K4"]}
@@ -977,6 +1181,7 @@ def main():
          "library_ms": None, "timing": "graph replay",
          "plain_timing": "graph replay",
          "minmax_floor_ms": floors.get(k),
+         "init_path_launches": init_launches[k],
          **({"chain_floor_ms": k2_floor_ms} if k == "K2" else {})}
         for k, (name, source, replaces) in meta.items()]}))
     print(f"device: {card}")

@@ -8,18 +8,23 @@ bench.py times: ORB extraction, undistortion and tracking against a fixed
 map snapshot, chained through the motion model over a chunk of frames;
 with it the whole ORB extraction layer: FAST or Harris (nScoreType=0)
 ranking, the stacked and the per-level extractor, the cell-fused
-detector, and the settings file that selects them.
+detector, and the settings file that selects them; local mapping; and
+the two-view initialisation with the tracking recovery ladder, so that
+`pipeline/system.py::SLAMSystem` runs from raw frames.
 
 Layout (each subpackage mirrors its JAX counterpart):
   ops/        FAST, Harris, pyramid, selection, descriptors, matching;
               kernels K1 (fast_score_nms), K3 (fast_score_rect), K4
               (fast_cell_topk)
   frontend/   ORBExtractor (an nn.Module)
-  geometry/   SO3/SE3 maps, camera model
-  slam_map/   MapState (a dataclass of tensors)
-  solvers/    pose-only Gauss-Newton; kernel K2
-  pipeline/   per-frame tracking and the fused extract+track chunk
-  io/         numpy-only synthetic scene, settings files
+  geometry/   SO3/SE3 maps, quaternions, camera model, triangulation,
+              Horn's Sim3
+  slam_map/   MapState (a dataclass of tensors), covisibility, observations
+  solvers/    pose-only Gauss-Newton (kernel K2), local BA, two-view
+              initialisation
+  pipeline/   per-frame tracking, the fused extract+track chunk, mapping
+              kernels, the SLAMSystem
+  io/         numpy-only synthetic scene, settings files, trajectories
   csrc/       the hand-written CUDA kernels, built by _build.py
   device.py   the default device of the entry points: the CUDA card
 

@@ -1,26 +1,33 @@
-"""SLAMSystem: the sequential system, from a map already in WORKING state.
+"""SLAMSystem: the sequential system, from raw frames to a tracked,
+mapped camera path.
 
-Port of the slice of orb_slam_tpu/pipeline/system.py that tracks and maps
-once the map exists: `SlamConfig` (:64-170), `FrameData` (:172-183),
-`reset` without the place-recognition, relocalisation and loop-closing
-fields (:251-287), `process_batch`
-(:316-347) over `extract_track_chunk` (the chunk of :349-415),
-`_apply_chunk` (:417-492), `_refresh_local_mask` and `_track_mask`
-(:692-715), `_apply_counters`, `_mapper_accepting`, `_need_new_keyframe`,
+Port of orb_slam_tpu/pipeline/system.py without place recognition,
+relocalisation and loop closing: `SlamConfig` (:64-170), `FrameData`
+(:172-183), the 2x-feature init extractor (:194-202), `reset` (:251-287),
+`make_frame` (:291-312), `process_batch` (:316-347) over
+`extract_track_chunk` (the chunk of :349-415), `_apply_chunk`
+(:417-492), `process` (:494-508), `_first_initialization` and
+`_try_initialize` (:512-657), `_refresh_local_mask` and `_track_mask`
+(:692-715), `_track` with the recovery ladder (:717-814),
+`_apply_counters`, `_mapper_accepting`, `_need_new_keyframe`,
 `_alloc_kf`, `_create_keyframe`, `_dispatch_keyframe` (:816-871),
 `_integrate_keyframe` (:873-901), `_local_mapping` (:988-1176),
 `_publish_mapped_pose`, `_compose_forward`, `_resolve_obs`,
-`_reclaim_points` and `_repair_spanning_tree` (:1178-1242).
+`_reclaim_points`, `_repair_spanning_tree` (:1178-1242) and
+`keyframe_trajectory` (:1246-1262).
 
 The host policy is the JAX package's numpy, verbatim: the neighbour
 orders (`np.argsort`, quicksort order on equal weights), the free lists,
-the gauge choice. Not ported yet, and refused with NotImplementedError:
-initialisation (a state other than WORKING; ROADMAP A item 2), the
-`_track` recovery ladder and relocalisation for a frame under
-`min_track_inliers` (item 4), loop closing (item 5), and the sharded BA
-(`mesh`). The chunk is not padded to `track_chunk_size`: frame b of a
-chunk depends only on frames 0..b, so the padded frames JAX computes and
-drops change nothing.
+the gauge choice, the 2N -> N compaction of the initial keyframes. Not
+ported yet: `_setup_place_recognition` (ROADMAP A item 3), so `db` and
+`loop_closer` stay None whatever the flags say and a lost frame is never
+relocalised; `_relocalize` itself raises NotImplementedError (item 4);
+loop closing (item 5); the sharded BA (`mesh`). The RANSAC draws of the
+initialisation come from a `torch.Generator` seeded with `cfg.seed` on
+the system's device: they cannot repeat `jax.random`'s, and the parity
+tests replace `_minimal_sets` to inject JAX's. The chunk is not padded to
+`track_chunk_size`: frame b of a chunk depends only on frames 0..b, so the
+padded frames JAX computes and drops change nothing.
 """
 
 from __future__ import annotations
@@ -33,22 +40,33 @@ import torch
 
 from orb_slam_tpu_torch.device import require_device
 from orb_slam_tpu_torch.frontend.orb_extractor import ORBConfig, ORBExtractor
-from orb_slam_tpu_torch.geometry.camera import CameraModel, undistorted_bounds
-from orb_slam_tpu_torch.ops.matching import TH_HIGH
+from orb_slam_tpu_torch.geometry.camera import (
+    CameraModel, undistort_points, undistorted_bounds,
+)
+from orb_slam_tpu_torch.geometry.se3 import se3_inverse
+from orb_slam_tpu_torch.geometry.so3 import rot_to_quat
+from orb_slam_tpu_torch.ops.image import to_grayscale
+from orb_slam_tpu_torch.ops.matching import TH_HIGH, TH_LOW, match, window_gate
 from orb_slam_tpu_torch.pipeline.chunk import extract_track_chunk
 from orb_slam_tpu_torch.pipeline.mapping_kernels import (
     fuse_into_keyframe, insert_new_points, keyframe_redundancy,
     point_cull_stats, triangulate_new_points,
 )
+from orb_slam_tpu_torch.pipeline.track_kernels import (
+    track_frame, track_prev_frame,
+)
 from orb_slam_tpu_torch.slam_map.covisibility import (
     covisibility_weights, local_point_mask,
 )
 from orb_slam_tpu_torch.slam_map.map_state import (
-    MapConfig, MapState, empty_map, insert_keyframe, remove_keyframe,
-    remove_points,
+    MapConfig, MapState, add_points, empty_map, insert_keyframe,
+    remove_keyframe, remove_points,
 )
 from orb_slam_tpu_torch.slam_map.observations import refresh_point_stats
 from orb_slam_tpu_torch.solvers.local_ba import apply_edge_outliers, bundle_adjust
+from orb_slam_tpu_torch.solvers.two_view import (
+    initialize_two_view, sample_minimal_sets,
+)
 
 # Tracking states (reference: include/Tracking.h:57-64)
 NO_IMAGES_YET = 0
@@ -145,18 +163,25 @@ class FrameData:
 
 
 class SLAMSystem:
-    """Camera frames in, a pose per frame and a map out, on `device` (the
-    card unless the caller names another). A system starts WORKING once
-    its map holds a keyframe and points; the tests and chip_smoke.py set
-    those fields from a seeded map (io/synthetic.py::seed_keyframe_map)."""
+    """Camera frames (or oracle features) in, a pose per frame and a map
+    out, on `device` (the card unless the caller names another)."""
 
     def __init__(self, cfg: SlamConfig = None, device="cuda"):
         self.cfg = cfg or SlamConfig()
         self.device = require_device(device)
         cam = self.cfg.camera
-        self.extractor = (ORBExtractor(self.cfg.orb, cam.height, cam.width,
-                                       device=self.device)
-                          if self.cfg.orb is not None else None)
+        if self.cfg.orb is not None:
+            self.extractor = ORBExtractor(self.cfg.orb, cam.height, cam.width,
+                                          device=self.device)
+            # the initialisation extracts twice the features (the
+            # reference's mpIniORBextractor, Tracking.cc:111,126); the
+            # initial keyframes are compacted back to n_features
+            self.extractor_init = ORBExtractor(
+                replace(self.cfg.orb, n_features=2 * self.cfg.orb.n_features),
+                cam.height, cam.width, device=self.device)
+        else:
+            # oracle features only: process(features=...)
+            self.extractor = self.extractor_init = None
         self.K = np.array([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy],
                            [0.0, 0.0, 1.0]], np.float32)
         self.K_dev = torch.from_numpy(self.K).to(self.device)
@@ -180,11 +205,21 @@ class SLAMSystem:
         self.frame_id = 0
         self.last_pose = np.eye(4, dtype=np.float32)
         self.velocity = np.eye(4, dtype=np.float32)
+        self.init_ref = None
+        # the previous frame and its feature->point bindings, for the
+        # TrackPreviousFrame ladder (Tracking.cc:486-552)
+        self._prev_frame = None
         self.last_kf_frame = -10**9
         self.last_kf_slot = -1
         self.ref_kf_tracked = 0
         self.trajectory = []  # (frame_id, timestamp, T_cw numpy)
+        self.lost_count = 0
+        # the RANSAC draws of the initialisation (JAX: a PRNGKey from
+        # cfg.seed, split per attempt)
+        self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.db = None
         self.loop_closer = None
+        self.n_relocs = 0
         # merge-forwarding table (MapPoint::Replace's mpReplaced pointer)
         self.pt_forward = np.arange(cfg.map.max_points, dtype=np.int32)
         self.local_mask = None
@@ -195,23 +230,51 @@ class SLAMSystem:
         self.ba_iterations = []
         self.mapping_counts = {}
 
+    # --------------------------------------------------------------- frontend
+
+    def make_frame(self, img=None, features=None, timestamp=None) -> FrameData:
+        """FrameData from an image (ORB extraction and undistortion; the 2x
+        init extractor before WORKING, Tracking.cc:199-202) or from oracle
+        features (a dict of xy, desc as uint32 words, octave, angle, valid,
+        as numpy; the words become int32 tensors of the same bits)."""
+        ts = self.frame_id / 30.0 if timestamp is None else timestamp
+        dev = self.device
+        if features is not None:
+            desc = np.asarray(features["desc"]).astype(np.uint32).view(np.int32)
+            return FrameData(
+                torch.as_tensor(np.asarray(features["xy"], np.float32)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(desc)).to(dev),
+                torch.as_tensor(np.asarray(features["octave"], np.int32)).to(dev),
+                torch.as_tensor(np.asarray(features["angle"], np.float32)).to(dev),
+                torch.as_tensor(np.asarray(features["valid"], bool)).to(dev),
+                self.frame_id, ts)
+        gray = to_grayscale(torch.as_tensor(img).to(dev))
+        init = self.state in (NO_IMAGES_YET, NOT_INITIALIZED, INITIALIZING)
+        f = (self.extractor_init if init else self.extractor)(gray)
+        return FrameData(undistort_points(self.cfg.camera, f.xy), f.desc_i32,
+                         f.octave, f.angle, f.valid, self.frame_id, ts)
+
     # ------------------------------------------------------------------ entry
 
     def process_batch(self, images, timestamps=None, chunk_size=None):
         """Process frames in chunks, each one `extract_track_chunk` against
         the current map; the host replays each chunk's results and
-        re-enters after a keyframe. Returns the list of poses."""
+        re-enters after a keyframe or a weak frame. Frames before
+        initialisation, while LOST, at a chunk size of 1 and the last
+        single frame go through `process`, as in JAX. Returns the list of
+        poses (None where untracked)."""
         B = len(images)
         if timestamps is None:
             timestamps = [None] * B
-        C = max(chunk_size or self.cfg.track_chunk_size, 1)
+        C = chunk_size or self.cfg.track_chunk_size
         poses = []
         i = 0
         while i < B:
-            if self.state != WORKING:
-                raise NotImplementedError(
-                    f"process_batch in state {STATE_NAMES[self.state]}: "
-                    "initialisation is not ported yet (ROADMAP A item 2)")
+            if self.state != WORKING or C <= 1 or B - i == 1:
+                poses.append(self.process(img=images[i],
+                                          timestamp=timestamps[i]))
+                i += 1
+                continue
             n = min(C, B - i)
             feats, xy_und, chunk = self._chunk_extract_track(images[i:i + n])
             consumed, chunk_poses = self._apply_chunk(
@@ -222,8 +285,8 @@ class SLAMSystem:
 
     def _chunk_extract_track(self, images):
         cfg = self.cfg
-        imgs = torch.stack([torch.as_tensor(im) for im in images]).to(
-            self.device, torch.float32)
+        imgs = to_grayscale(torch.stack([torch.as_tensor(im) for im in images])
+                            .to(self.device))
         return extract_track_chunk(
             imgs, self.extractor, cfg.camera, self.map,
             torch.from_numpy(self.last_pose).to(self.device),
@@ -235,7 +298,8 @@ class SLAMSystem:
     def _apply_chunk(self, feats, xy_und, chunk, n, ts_list):
         """Host replay of a chunk's per-frame results: trajectory, velocity,
         visibility counters, keyframe policy. Stops at the first keyframe;
-        returns (frames consumed, poses)."""
+        re-tracks a weak frame through `_track` (the ladder, LOST) and stops
+        there too; returns (frames consumed, poses)."""
         cfg = self.cfg
         cn_in = chunk.n_inliers.cpu().numpy()
         cposes = chunk.pose.cpu().numpy()
@@ -265,14 +329,19 @@ class SLAMSystem:
             ts = ts_list[b] if ts_list[b] is not None else fid / 30.0
             n_in = int(cn_in[b])
             if n_in < cfg.min_track_inliers:
+                # the chunk runs without the ladder: this frame again
+                # through _track, which sees frame b-1 as _prev_frame
                 _flush_counters()
-                self._track(_frame_data(b, fid, ts))    # raises, not ported
+                T = self._track(_frame_data(b, fid, ts))
+                poses_out.append(None if T is None else self.last_pose.copy())
+                return b + 1, poses_out
             self.state = WORKING
             T_new = cposes[b]
             vis_sum += cvis[b]
             pids = cobs[b][cobs[b] >= 0]
             np.add.at(found_sum, pids, 1)
             counters_dirty = True
+            self._prev_frame = (_frame_data(b, fid, ts), chunk.obs[b])
             self.velocity = (
                 T_new @ _np_se3_inverse(self.last_pose)).astype(np.float32)
             self.last_pose = T_new.astype(np.float32)
@@ -288,11 +357,161 @@ class SLAMSystem:
         _flush_counters()
         return n, poses_out
 
-    def _track(self, frame: FrameData):
-        raise NotImplementedError(
-            f"frame {frame.frame_id} tracked under min_track_inliers="
-            f"{self.cfg.min_track_inliers}: the _track recovery ladder and "
-            "relocalisation are not ported yet (ROADMAP A item 4)")
+    def process(self, img=None, features=None, timestamp=None):
+        """Process one frame; returns its pose (numpy [4, 4]) or None while
+        not initialised or lost."""
+        frame = self.make_frame(img, features, timestamp)
+        self.frame_id += 1
+        if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
+            self._first_initialization(frame)
+            return None
+        if self.state == INITIALIZING:
+            ok = self._try_initialize(frame)
+            return self.last_pose.copy() if ok else None
+        if self.state in (WORKING, LOST):
+            return self._track(frame)
+        return None
+
+    # --------------------------------------------------------- initialization
+
+    def _first_initialization(self, frame: FrameData):
+        """Tracking::FirstInitialization (src/Tracking.cc:320-338)."""
+        if int(frame.valid.sum()) > self.cfg.min_init_keypoints:
+            self.init_ref = frame
+            self.state = INITIALIZING
+
+    def _minimal_sets(self, valid):
+        """The [200, 8] minimal sets of one initialisation attempt (JAX
+        splits its key for each attempt, system.py:544)."""
+        return sample_minimal_sets(valid, 200, 8, generator=self._gen)
+
+    def _try_initialize(self, frame: FrameData) -> bool:
+        """Tracking::Initialize + CreateInitialMap (src/Tracking.cc:341-483):
+        match against the reference frame, the two-view bootstrap, the map
+        scaled to unit median depth, two keyframes and their points, and a
+        global BA of the two views."""
+        cfg = self.cfg
+        dev = self.device
+        ref = self.init_ref
+        if int(frame.valid.sum()) <= cfg.min_init_keypoints:
+            self.state = NOT_INITIALIZED
+            self.init_ref = None
+            return False
+
+        # SearchForInitialization: 100 px window, mutual best, every level,
+        # rotation check on
+        gate = window_gate(ref.xy, frame.xy, 100.0)
+        idx, _, ok = match(
+            ref.desc, frame.desc, allowed=gate, valid_a=ref.valid,
+            valid_b=frame.valid, angle_a=ref.angle, angle_b=frame.angle,
+            max_dist=TH_LOW, nn_ratio=0.9, mutual=True, check_rotation=True,
+            unique=True)
+        if int(ok.sum()) < cfg.min_init_matches:
+            self.init_ref = frame       # the reference resets; JAX rolls
+            return False
+
+        res = initialize_two_view(ref.xy, frame.xy[idx], ok, self.K_dev,
+                                  idx=self._minimal_sets(ok))
+        if not bool(res.success):
+            return False
+
+        # ---- the initial map ----
+        tri = res.is_triangulated.cpu().numpy()
+        pts = res.points3d.cpu().numpy()
+        T1 = np.eye(4, dtype=np.float32)
+        T2 = np.eye(4, dtype=np.float32)
+        T2[:3, :3] = res.R21.cpu().numpy()
+        T2[:3, 3] = res.t21.cpu().numpy()
+
+        # median-depth scale normalisation (Tracking.cc:439-463)
+        depths = pts[tri][:, 2]
+        if len(depths) < 30:
+            return False
+        med = float(np.median(depths))
+        if med <= 0:
+            return False
+        inv_med = 1.0 / med
+        pts = pts * inv_med
+        T2[:3, 3] *= inv_med
+
+        N = cfg.map.n_features
+        Nf = int(ref.xy.shape[0])   # 2N with the init extractor
+        pt_slots = np.full(Nf, -1, np.int32)
+        tri_idx = np.where(tri)[0]
+        # new points capped by the free list and (after compaction) N
+        n_new = min(len(tri_idx), len(self.free_pt), N)
+        tri_idx = tri_idx[:n_new]
+        slots = [self.free_pt.pop(0) for _ in range(n_new)]
+        pt_slots[tri_idx] = slots
+
+        idx_np = idx.cpu().numpy()
+        ok_np = ok.cpu().numpy()
+        tri_dev = torch.from_numpy(tri_idx).to(dev)
+        point_desc = ref.desc[tri_dev]      # before the compaction
+        cur_pt = np.full(Nf, -1, np.int32)
+        cur_pt[idx_np[tri_idx]] = pt_slots[tri_idx]
+
+        if Nf > N:
+            # the 2x-feature init frames compacted to the map's N feature
+            # slots: point-bearing features first, then matched, then any
+            # valid detection
+            vr = ref.valid.cpu().numpy()
+            prio_ref = np.where(pt_slots >= 0, 0,
+                                np.where(ok_np & vr, 1, np.where(vr, 2, 3)))
+            order_ref = np.argsort(prio_ref, kind="stable")[:N]
+            vc = frame.valid.cpu().numpy()
+            prio_cur = np.where(cur_pt >= 0, 0, np.where(vc, 2, 3))
+            order_cur = np.argsort(prio_cur, kind="stable")[:N]
+
+            def _subset(fr, order):
+                o = torch.from_numpy(order).to(dev)
+                return FrameData(fr.xy[o], fr.desc[o], fr.octave[o],
+                                 fr.angle[o], fr.valid[o], fr.frame_id,
+                                 fr.timestamp)
+
+            ref = _subset(ref, order_ref)
+            frame = _subset(frame, order_cur)
+            obs1, obs2 = pt_slots[order_ref], cur_pt[order_cur]
+        else:
+            obs1, obs2 = pt_slots, cur_pt
+
+        k1 = self._alloc_kf()
+        k2 = self._alloc_kf()
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        m = insert_keyframe(self.map, k1, t(T1), ref.frame_id, ref.xy,
+                            ref.octave, ref.angle, ref.desc, ref.valid,
+                            t(obs1), -1)
+        m = insert_keyframe(m, k2, t(T2), frame.frame_id, frame.xy,
+                            frame.octave, frame.angle, frame.desc, frame.valid,
+                            t(obs2), k1)
+        n_pts = len(tri_idx)
+        m = add_points(m, t(pt_slots[tri_idx]), t(pts[tri_idx]), point_desc,
+                       torch.full((n_pts,), k1, dtype=torch.int32, device=dev),
+                       torch.full((n_pts,), k1, dtype=torch.int32, device=dev),
+                       torch.ones(n_pts, dtype=torch.bool, device=dev))
+        # global BA of the two views (GlobalBundleAdjustemnt(map, 20)), the
+        # first keyframe fixed
+        cam_opt = torch.arange(cfg.map.max_keyframes, device=dev) == k2
+        sf = cfg.map.scale_factor
+        m, outlier, (okf, ofeat) = bundle_adjust(
+            m, self.K_dev, cam_opt, m.pt_valid, iters1=10, iters2=10,
+            mesh=cfg.mesh, max_opt_pts=cfg.max_ba_points or None,
+            scale_factor=sf)
+        m = apply_edge_outliers(m, outlier, okf, ofeat, kill_starved=False)
+        self.map = refresh_point_stats(m, scale_factor=sf,
+                                       n_levels=cfg.map.n_levels)
+
+        self.last_pose = self.map.kf_pose[k2].cpu().numpy().copy()
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.last_kf_frame = frame.frame_id
+        self.last_kf_slot = k2
+        self.ref_kf_tracked = n_pts
+        self.trajectory.append((ref.frame_id, ref.timestamp, T1.copy()))
+        self.trajectory.append(
+            (frame.frame_id, frame.timestamp, self.last_pose.copy()))
+        self.state = WORKING
+        self._refresh_local_mask()
+        return True
 
     # ---------------------------------------------------------------- tracking
 
@@ -315,6 +534,93 @@ class SLAMSystem:
     def _track_mask(self):
         return (self.local_mask if self.local_mask is not None
                 else self.map.pt_valid)
+
+    def _track(self, frame: FrameData):
+        """Fused motion-model and local-map tracking, with the recovery
+        ladder for a frame under `min_track_inliers`: TrackPreviousFrame
+        and a re-track from its pose, then the map again at twice the
+        radius from the unmoved pose, then LOST (Tracking.cc:206-298)."""
+        cfg = self.cfg
+        dev = self.device
+        kw = dict(p_local=cfg.p_local, width=cfg.camera.width,
+                  height=cfg.camera.height, bounds=self.img_bounds,
+                  scale_factor=cfg.map.scale_factor,
+                  n_levels=cfg.map.n_levels)
+        pose = torch.from_numpy(self.last_pose).to(dev)
+        # the prediction formed on the device as the chunk step forms it,
+        # so a frame tracked here and in a chunk of one get the same bits
+        # (JAX forms it in numpy)
+        T_pred = (torch.from_numpy(self.velocity).to(dev) @ pose
+                  if cfg.use_motion_model else pose)
+        res = track_frame(self.map, frame.xy, frame.desc, frame.octave,
+                          frame.valid, T_pred, self.K_dev, self._track_mask(),
+                          radius=cfg.track_radius, **kw)
+        n_in = int(res.n_inliers)
+        if n_in < cfg.min_track_inliers and self._prev_frame is not None:
+            # TrackPreviousFrame (Tracking.cc:486-552), its bindings taken
+            # through the forwarding table (Replace), then the local-map
+            # step from the recovered pose (Tracking.cc:245-270)
+            pf, pobs = self._prev_frame
+            pobs_np = pobs.cpu().numpy()
+            P = len(self.pt_forward)
+            pobs_np = np.where(pobs_np >= 0,
+                               self.pt_forward[np.clip(pobs_np, 0, P - 1)], -1)
+            coarse = ((cfg.map.n_levels - 1) // 2 + 1
+                      if self.n_keyframes > 5 else 0)
+            T_rec, _, n_rec = track_prev_frame(
+                self.map, pf.xy, pf.desc, pf.octave, pf.angle,
+                torch.from_numpy(pobs_np.astype(np.int32)).to(dev),
+                frame.xy, frame.desc, frame.octave, frame.angle, frame.valid,
+                pose, self.K_dev, coarse, width=cfg.camera.width,
+                height=cfg.camera.height, scale_factor=cfg.map.scale_factor,
+                n_levels=cfg.map.n_levels)
+            if int(n_rec) >= 10:
+                res = track_frame(self.map, frame.xy, frame.desc,
+                                  frame.octave, frame.valid, T_rec, self.K_dev,
+                                  self._track_mask(), radius=cfg.track_radius,
+                                  **kw)
+                n_in = int(res.n_inliers)
+        if n_in < cfg.min_track_inliers:
+            # the last rung: the map at twice the radius from the unmoved
+            # pose (no reference analog; catches a motion-model overshoot)
+            res = track_frame(self.map, frame.xy, frame.desc, frame.octave,
+                              frame.valid, pose, self.K_dev,
+                              self._track_mask(),
+                              radius=cfg.track_radius * 2.0, **kw)
+            n_in = int(res.n_inliers)
+
+        if n_in < cfg.min_track_inliers:
+            self.state = LOST
+            self.lost_count += 1
+            self._prev_frame = None
+            self.velocity = np.eye(4, dtype=np.float32)
+            # lost soon after the initialisation: reset (Tracking.cc:272-279)
+            if self.n_keyframes <= 5 and self.kf_counter <= 5:
+                self.reset()
+                return None
+            if cfg.enable_relocalisation and self.db is not None:
+                if self._relocalize(frame):
+                    return self.last_pose.copy()
+            return None
+
+        self.state = WORKING
+        T_new = res.pose.cpu().numpy()
+        self._apply_counters(res)
+        self._prev_frame = (frame, res.obs)
+        # motion model: velocity = T_new inv(T_last) (Tracking.cc:282-295)
+        self.velocity = (T_new @ _np_se3_inverse(self.last_pose)).astype(
+            np.float32)
+        self.last_pose = T_new
+        self.trajectory.append((frame.frame_id, frame.timestamp, T_new.copy()))
+        if self._need_new_keyframe(frame.frame_id, n_in):
+            self._create_keyframe(frame, res.obs, n_in)
+        return T_new
+
+    def _relocalize(self, frame: FrameData) -> bool:
+        raise NotImplementedError(
+            f"frame {frame.frame_id} is lost: relocalisation (EPnP RANSAC "
+            "against the keyframe database) is not ported yet (ROADMAP A "
+            "item 4)")
 
     def _apply_counters(self, res):
         """MapPoint::IncreaseVisible/Found."""
@@ -627,6 +933,22 @@ class SLAMSystem:
         return m.replace(spanning_parent=torch.from_numpy(spn).to(self.device))
 
     # ------------------------------------------------------------------ output
+
+    def keyframe_trajectory(self):
+        """(frame id, t_wc [3], q_wc [4] xyzw) of each live keyframe in
+        insertion order, the rows of the reference's KeyFrameTrajectory.txt
+        (src/main.cc:160-185)."""
+        rows = []
+        kf_valid = self.map.kf_valid.cpu().numpy()
+        poses = self.map.kf_pose.cpu()
+        fids = self.map.kf_frame_id.cpu().numpy()
+        for slot in np.argsort(self.kf_order):
+            if self.kf_order[slot] < 0 or not kf_valid[slot]:
+                continue
+            T_wc = se3_inverse(poses[slot])
+            rows.append((int(fids[slot]), T_wc[:3, 3].numpy(),
+                         rot_to_quat(T_wc[:3, :3]).numpy()))
+        return rows
 
     @property
     def n_keyframes(self):

@@ -2,7 +2,8 @@
 
 Port of orb_slam_tpu/pipeline/track_kernels.py: `project_points`
 (:38-44), `frustum_gate` (:47-88), `_track_body` as `track_frame`
-(:91-222), `ChunkResult` (:340-347), `chunk_track_step` (:404-444) and
+(:91-222), `_prev_frame_ladder_body` as `track_prev_frame` (:225-337),
+`ChunkResult` (:340-347), `chunk_track_step` (:404-444) and
 `_track_chunk_body` as `track_chunk` (:350-401). `lax.scan` is a Python
 loop and the low-inlier retry a plain `if`; the main path runs with
 retry=False (track_kernels.py:414-418), which needs no host sync.
@@ -22,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from orb_slam_tpu_torch.geometry.se3 import se3_inverse
-from orb_slam_tpu_torch.ops.matching import TH_HIGH, match
+from orb_slam_tpu_torch.ops.matching import TH_HIGH, match, window_gate
 from orb_slam_tpu_torch.ops.sort import first_k_true
 from orb_slam_tpu_torch.slam_map.map_state import MapState
 from orb_slam_tpu_torch.solvers.pose_opt import pose_optimize
@@ -142,6 +143,85 @@ def track_frame(state: MapState, feat_xy, feat_desc, feat_octave, feat_valid,
         0, torch.where(good, sel, 0), good.to(torch.int32))
     return TrackResult(T_opt, obs, n_in, matched.sum(), visible.to(torch.int32),
                        found_inc)
+
+
+def track_prev_frame(state: MapState, prev_xy, prev_desc, prev_octave,
+                     prev_angle, prev_obs, cur_xy, cur_desc, cur_octave,
+                     cur_angle, cur_valid, T_last, K_mat, coarse_min_octave,
+                     *, width: int = 640, height: int = 480,
+                     scale_factor: float = 1.2, n_levels: int = 8):
+    """TrackPreviousFrame (src/Tracking.cc:486-552): the current frame's
+    pose from matches against the previous FRAME's bound points, for when
+    the motion-model map tracking fails. prev_* [N] the previous frame's
+    features and prev_obs [N] their point ids (-1 none); cur_* [M];
+    T_last [4, 4] the previous pose; coarse_min_octave the least octave of
+    stage 1 (maxOctave/2 + 1 once the map has more than 5 keyframes, else
+    0).
+
+    1. WindowSearch at 200 px over the coarse octaves, same octave, ratio
+       0.9 and the rotation histogram (ORBmatcher.cc:409-517);
+    2. the same at 100 px over every octave, taken when stage 1 has under
+       10 matches (both are computed, the choice is by count on the
+       device);
+    3. with >= 10 matches a pose GN (K2 on the card) and its outliers
+       dropped, then SearchByProjection of the unmatched points at 15 px
+       from that pose; else at 50 px from T_last (ORBmatcher.cc:519-594);
+    4. the final pose GN (K2) over all the matches.
+    Nothing reads the device. Returns (T [4, 4], n_inliers, n_matches)."""
+    P = state.pt_valid.shape[0]
+    M = cur_xy.shape[0]
+    obs_c = prev_obs.clamp(0, P - 1).long()
+    pt_ok = (prev_obs >= 0) & state.pt_valid[obs_c]
+    pts = state.pt_pos[obs_c]
+    mkw = dict(valid_b=cur_valid, angle_a=prev_angle, angle_b=cur_angle,
+               max_dist=TH_HIGH, nn_ratio=0.9, check_rotation=True,
+               unique=True)
+
+    gate1 = window_gate(prev_xy, cur_xy, 200.0, octave_b=cur_octave,
+                        min_level=prev_octave, max_level=prev_octave)
+    i1, _, m1 = match(prev_desc, cur_desc, allowed=gate1,
+                      valid_a=pt_ok & (prev_octave >= coarse_min_octave), **mkw)
+    n1 = m1.sum()
+    gate2 = window_gate(prev_xy, cur_xy, 100.0, octave_b=cur_octave,
+                        min_level=prev_octave, max_level=prev_octave)
+    i2, _, m2 = match(prev_desc, cur_desc, allowed=gate2, valid_a=pt_ok, **mkw)
+    use2 = n1 < 10
+    best_idx = torch.where(use2, i2, i1)
+    matched = torch.where(use2, m2, m1)
+    n12 = torch.where(use2, m2.sum(), n1)
+
+    # intermediate pose GN and its outliers dropped (Tracking.cc:514-527)
+    inv_sigma2_of = lambda idx: 1.0 / (
+        scale_factor ** (2.0 * cur_octave[idx].to(torch.float32)))
+    T1, inl1, _ = pose_optimize(
+        T_last.contiguous(), pts, cur_xy[best_idx], inv_sigma2_of(best_idx),
+        matched, K_mat, iters=(4, 3, 2, 2))
+    good = n12 >= 10
+    matched = matched & torch.where(good, inl1, True)
+    T_proj = torch.where(good, T1, T_last)
+    rad = torch.where(good, 15.0, 50.0)
+
+    # projection top-up: the unmatched previous-frame points through
+    # T_proj; current features already bound (vpMapPointMatches2) and
+    # points already found are excluded
+    proj, z = project_points(pts, T_proj, K_mat)
+    gate_p = window_gate(proj, cur_xy, rad, octave_b=cur_octave,
+                         min_level=prev_octave, max_level=prev_octave)
+    col_taken = torch.zeros((M + 1,), dtype=torch.bool, device=cur_xy.device)
+    col_taken = col_taken.index_fill(
+        0, torch.where(matched, best_idx, M), True)[:M]
+    ip, _, mp_ = match(prev_desc, cur_desc, allowed=gate_p,
+                       valid_a=pt_ok & ~matched & (z > 0),
+                       valid_b=cur_valid & ~col_taken, max_dist=TH_HIGH,
+                       nn_ratio=0.9, unique=True)
+    best_all = torch.where(matched, best_idx, ip)
+    matched_all = matched | mp_
+
+    # final pose GN over all the matches (Tracking.cc:541)
+    T_f, _, n_in = pose_optimize(
+        T_proj.contiguous(), pts, cur_xy[best_all], inv_sigma2_of(best_all),
+        matched_all, K_mat, iters=(4, 3, 2, 2))
+    return T_f, n_in, matched_all.sum()
 
 
 def chunk_track_step(state, xy, desc, octv, val, carry, K_mat, pt_mask=None,

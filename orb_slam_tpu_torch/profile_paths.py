@@ -25,9 +25,10 @@ integration and per stage the host-clock ms, the device time, the device
 work items launched (kernels, copies, fills) and the busy share; the rest
 of the path is tracking and the host's replay. Last, the split of one
 local-BA solver step (`ba_stage_split`) at chip_smoke.py's two shapes.
-With --spread, only `mapping_spread`: the mapping path's keyframe centre
-error over scene seeds and the order of BA's float sums, on the card and
-the CPU. Needs a CUDA card.
+With --spread, only `mapping_spread`: the mapping path's keyframe ATE
+after a Sim3 alignment and centre error over scene seeds and the order
+of BA's float sums, on the card and the CPU, and per seed the system
+from raw frames through its own initialisation. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -46,10 +47,12 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from orb_slam_tpu_torch.frontend.orb_extractor import ORBConfig, ORBExtractor
 from orb_slam_tpu_torch.geometry.camera import CameraModel
+from orb_slam_tpu_torch.geometry.horn import horn_sim3
 from orb_slam_tpu_torch.io.settings import settings_text, slam_config_from_settings
 from orb_slam_tpu_torch.io.synthetic import (
     SyntheticScene, lateral_trajectory, seed_keyframe_map, seed_map,
 )
+from orb_slam_tpu_torch.io.trajectory import ate_rmse, camera_centers_from_cw
 from orb_slam_tpu_torch.pipeline import system as slam
 from orb_slam_tpu_torch.pipeline.chunk import extract_track_chunk
 from orb_slam_tpu_torch.slam_map.map_state import MapConfig
@@ -115,6 +118,36 @@ def keyframe_center_errors(s: slam.SLAMSystem, poses):
     return fid, c, np.linalg.norm(c - g, axis=1)
 
 
+def keyframe_ate(s: slam.SLAMSystem, poses):
+    """(RMSE of the live keyframes' camera centres against the ground
+    truth of their frames after a Sim3 alignment, the alignment's scale,
+    the ground-truth path length from the first keyframe's frame to the
+    last's, the keyframes' frame ids) of `s`: the monocular check, since
+    the map's scale is its own (the two-view initialisation scales it to
+    unit median depth)."""
+    rows = s.keyframe_trajectory()
+    fid = np.array([r[0] for r in rows])
+    est = np.stack([r[1] for r in rows]).astype(np.float64)
+    gt_all = camera_centers_from_cw(np.asarray(poses, np.float64))
+    gt = gt_all[fid]
+    rmse, _ = ate_rmse(est, gt)
+    scale = float(horn_sim3(torch.from_numpy(gt.astype(np.float32)),
+                            torch.from_numpy(est.astype(np.float32)))[0])
+    seg = gt_all[fid.min():fid.max() + 1]
+    length = float(np.linalg.norm(np.diff(seg, axis=0), axis=1).sum())
+    return rmse, scale, length, fid
+
+
+def init_system(scene, device) -> slam.SLAMSystem:
+    """A SLAMSystem at the SlamConfig defaults for the scene's camera,
+    loop closing and relocalisation off, to start from raw frames."""
+    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy,
+                         width=scene.width, height=scene.height)
+    return slam.SLAMSystem(slam.SlamConfig(
+        camera=camera, enable_loop_closing=False,
+        enable_relocalisation=False), device=device)
+
+
 def _atomic_scatter_add_(out, rows, index, values, live):
     """local_ba._scatter_add_ with CUDA's atomic index_add_ on the card,
     whose order of addition changes from run to run."""
@@ -128,10 +161,13 @@ def mapping_spread(card, N, seeds=(0, 1, 2, 3), cpu_seeds=(0, 1), device=None):
     scene seed on the card with BA's ordered scatter-adds (the port's,
     which repeat), twice with CUDA's atomic index_add_ in their place, and
     on the CPU for `cpu_seeds`. Prints per run the keyframes inserted, the
-    least inliers of a frame and the keyframe centre error's max and mean,
-    and per CPU run the largest distance between its keyframe centres and
-    the card's (ordered run) over the keyframes of the same frames.
-    `device`: the card (default cuda:0)."""
+    least inliers of a frame, the keyframe ATE after a Sim3 alignment
+    (`keyframe_ate`, over the path length) and the keyframe centre error's
+    max and mean, and per CPU run the largest distance between its
+    keyframe centres and the card's (ordered run) over the keyframes of
+    the same frames. Then per seed chip_smoke.py's phase 10 on the card,
+    the system from raw frames through its own initialisation, and its
+    keyframe ATE. `device`: the card (default cuda:0)."""
     cpu = torch.device("cpu")
     card_dev = device or torch.device("cuda", 0)
     for seed in seeds:
@@ -147,14 +183,13 @@ def mapping_spread(card, N, seeds=(0, 1, 2, 3), cpu_seeds=(0, 1), device=None):
             fr = frames.to(dev)
             s = mapping_system(scene, poses, fr, dev)
             inl = []
-            apply_chunk = s._apply_chunk
+            need = s._need_new_keyframe
 
-            def recorded(feats, xy, chunk, n, ts, apply_chunk=apply_chunk, inl=inl):
-                consumed, out = apply_chunk(feats, xy, chunk, n, ts)
-                inl.extend(chunk.n_inliers[:consumed].tolist())
-                return consumed, out
+            def recorded(frame_id, n_in, need=need, inl=inl):
+                inl.append(n_in)
+                return need(frame_id, n_in)
 
-            s._apply_chunk = recorded
+            s._need_new_keyframe = recorded
             ordered = ba._scatter_add_
             if atomic:
                 ba._scatter_add_ = _atomic_scatter_add_
@@ -165,6 +200,7 @@ def mapping_spread(card, N, seeds=(0, 1, 2, 3), cpu_seeds=(0, 1), device=None):
                 ba._scatter_add_ = ordered
             run_s = time.perf_counter() - t
             fid, c, err = keyframe_center_errors(s, poses)
+            ate, scale, length, _ = keyframe_ate(s, poses)
             vs = ""
             if ref is None:
                 ref = dict(zip(fid.tolist(), c))
@@ -175,9 +211,21 @@ def mapping_spread(card, N, seeds=(0, 1, 2, 3), cpu_seeds=(0, 1), device=None):
                       f"same frames ({len(fid) - len(both)} not), centres up to "
                       f"{d:.4f} apart")
             print(f"spread seed {seed} {label}: {s.kf_counter - 2} keyframes, "
-                  f"{len(fid)} live, inliers min {min(inl)}, keyframe centre "
-                  f"error max {err.max():.4f} mean {err.mean():.4f} "
-                  f"({run_s:.1f} s){vs}; {card}", flush=True)
+                  f"{len(fid)} live, inliers min {min(inl)}, keyframe ATE "
+                  f"{ate:.5f} ({ate / length:.5f} of the path, scale "
+                  f"{scale:.4f}), keyframe centre error max {err.max():.4f} "
+                  f"mean {err.mean():.4f} ({run_s:.1f} s){vs}; {card}", flush=True)
+        s = init_system(scene, card_dev)
+        t = time.perf_counter()
+        out = s.process_batch(frames.to(card_dev)[:N + 2])
+        run_s = time.perf_counter() - t
+        first = next((i for i, p in enumerate(out) if p is not None), None)
+        ate, scale, length, fid = keyframe_ate(s, poses)
+        print(f"spread seed {seed} init path, card: initialised at frame {first}, "
+              f"{sum(p is not None for p in out)} of {len(out)} frames tracked, "
+              f"lost_count {s.lost_count}, {s.kf_counter} keyframes, {len(fid)} "
+              f"live, keyframe ATE {ate:.5f} ({ate / length:.5f} of the path, "
+              f"scale {scale:.4f}) ({run_s:.1f} s); {card}", flush=True)
 
 
 class StageClock:

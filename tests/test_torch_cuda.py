@@ -557,3 +557,130 @@ if __name__ == "__main__":
               f"poses {r['pose']:.3g}, points {r['rel']:.3g} of their distance; "
               f"outliers equal {torch.equal(out['cuda:0'][1].cpu(), out['cpu'][1])}; "
               f"LM iterations CPU {out['cpu'][3]}, card {out['cuda:0'][3]}")
+
+
+# --- initialisation and the tracking ladder: the card against the CPU ------
+# initialize_two_view from the same matches and minimal sets: cuSOLVER and
+# LAPACK round differently, so R within 1e-3, the unit t within 1e-2 and
+# is_triangulated agreeing on >= 99% of rows (chip_smoke.py's bounds; on the
+# CPU the port and JAX read R 3.2e-6 and t 1.2e-5 on the translation scene).
+# track_prev_frame: matching is exact, K2 against the plain GN holds its
+# pose to 1e-4, so the pose within 1e-4 and counts within max(2, 1%).
+
+TWO_VIEW_K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
+
+
+def two_view_scene(kind, seed=42):
+    """(x1, x2, valid) of tests/test_solvers.py's translation and planar
+    scenes, in numpy."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    n = 300
+    z = np.full(n, 6.0) if kind == "planar" else rng.uniform(4.0, 10.0, n)
+    pts = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), z], 1)
+    rv, t = (([0.0, -0.04, 0.0], [-0.6, 0.0, 0.1]) if kind == "planar"
+             else ([0.02, -0.05, 0.01], [-0.8, 0.1, 0.05]))
+    R = Rotation.from_rotvec(rv).as_matrix()
+
+    def project(P):
+        uv = P[:, :2] / P[:, 2:3] * 500.0 + [320, 240]
+        return (uv + rng.normal(0, 0.5, uv.shape)).astype(np.float32)
+
+    return project(pts), project(pts @ R.T + t), np.ones(n, bool)
+
+
+def two_view_both(dev, x1, x2, valid, seed=0):
+    from orb_slam_tpu_torch.solvers import two_view as tv
+
+    cpu = [torch.from_numpy(a) for a in (x1, x2, valid, TWO_VIEW_K)]
+    idx = tv.sample_minimal_sets(cpu[2], 200, 8,
+                                 generator=torch.Generator().manual_seed(seed))
+    c = tv.initialize_two_view(*cpu, idx=idx)
+    g = tv.initialize_two_view(*(a.to(dev) for a in cpu), idx=idx.to(dev))
+    return c, g
+
+
+@pytest.mark.parametrize("kind", ["translation", "planar"])
+def test_initialize_two_view_on_card_matches_cpu(dev, kind):
+    c, g = two_view_both(dev, *two_view_scene(kind))
+    assert bool(c.success) and bool(g.success)
+    assert bool(g.used_homography) == bool(c.used_homography) == (kind == "planar")
+    assert float((g.R21.cpu() - c.R21).abs().max()) < 1e-3
+    assert float((g.t21.cpu() - c.t21).abs().max()) < 1e-2
+    assert (g.is_triangulated.cpu() == c.is_triangulated).float().mean() >= 0.99
+
+
+@pytest.mark.parametrize("case", ["too_few", "all_invalid", "identical"])
+def test_two_view_degenerate_inputs_on_card(dev, case):
+    from orb_slam_tpu_torch.solvers import two_view as tv
+
+    rng = np.random.default_rng(42)
+    x1 = rng.uniform(0, 640, (64, 2)).astype(np.float32)
+    x2 = rng.uniform(0, 640, (64, 2)).astype(np.float32)
+    valid = np.zeros(64, bool)
+    if case == "too_few":
+        valid[:5] = True
+    elif case == "identical":           # no parallax, every H is the identity
+        x2, valid = x1.copy(), np.ones(64, bool)
+    c, g = two_view_both(dev, x1, x2, valid)
+    torch.cuda.synchronize()
+    assert not bool(g.success) and not bool(c.success)
+    assert torch.isfinite(g.R21).all()
+    H = torch.zeros((2, 3, 3), device=dev)
+    H[1] = torch.eye(3, device=dev)
+    s, inl = tv._score_h(H, torch.from_numpy(x1).to(dev), torch.from_numpy(x1).to(dev),
+                         torch.ones(64, dtype=torch.bool, device=dev))
+    assert float(s[0]) == 0.0 and not bool(inl[0].any()) and float(s[1]) > 0
+
+
+def test_track_prev_frame_on_card_matches_cpu(dev, mapped):
+    from orb_slam_tpu_torch.pipeline.track_kernels import track_prev_frame
+
+    s, K = mapped
+    W, H, f = 320, 240, 250.0
+    scene = SyntheticScene(n_points=800, width=W, height=H, fx=f, fy=f, cx=W / 2,
+                           cy=H / 2)
+    cur = s.extractor(torch.from_numpy(scene.render_image(
+        lateral_trajectory(13, step=0.04)[12])))
+    pf, pobs = s._prev_frame
+    args = [pf.xy, pf.desc, pf.octave, pf.angle, pobs, cur.xy, cur.desc_i32,
+            cur.octave, cur.angle, cur.valid, torch.from_numpy(s.last_pose), K]
+    kw = dict(width=W, height=H, scale_factor=1.2, n_levels=4)
+    for coarse in (0, 2):
+        Tc, nc, mc = track_prev_frame(s.map, *args, coarse, **kw)
+        k2.KERNEL.launches = 0
+        Tg, ng, mg = track_prev_frame(on(dev, s.map), *(a.to(dev) for a in args),
+                                      coarse, **kw)
+        assert k2.KERNEL.launches == 2
+        assert float((Tg.cpu() - Tc).abs().max()) < 1e-4
+        assert abs(int(ng) - int(nc)) <= max(2, int(nc) // 100)
+        assert abs(int(mg) - int(mc)) <= max(2, int(mc) // 100) and int(mc) > 30
+
+
+def test_init_to_working_on_card(dev):
+    from orb_slam_tpu_torch.pipeline import system as slam
+
+    W, H = 320, 240
+    scene = SyntheticScene(n_points=220, seed=23, width=W, height=H, fx=260.0,
+                           fy=260.0, cx=160.0, cy=120.0, extent=(7.0, 5.0, 3.0),
+                           depth_range=(5.5, 8.5))
+    poses = lateral_trajectory(6, step=0.12)
+    frames = torch.from_numpy(np.stack([scene.render_image(p, patch=5)
+                                        for p in poses])).to(dev)
+    cfg = slam.SlamConfig(
+        camera=CameraModel(260.0, 260.0, 160.0, 120.0, width=W, height=H),
+        orb=ORBConfig(n_features=400, n_levels=4),
+        map=MapConfig(max_keyframes=16, max_points=1024, n_features=400, n_levels=4),
+        p_local=512, n_triangulation_neighbors=2, n_fuse_neighbors=2,
+        local_ba_window=4, enable_loop_closing=False, enable_relocalisation=False,
+        min_init_matches=60, min_init_keypoints=60)
+    s = slam.SLAMSystem(cfg, device=dev)
+    k1.KERNEL.launches = k2.KERNEL.launches = 0
+    out = s.process_batch(frames)
+    torch.cuda.synchronize()
+    assert s.state == slam.WORKING and out[0] is None
+    tracked = [p for p in out if p is not None]
+    assert len(tracked) >= 4 and all(np.isfinite(p).all() for p in tracked)
+    assert s.n_points > 50 and s.map.pt_pos.is_cuda
+    assert k1.KERNEL.launches >= len(frames) and k2.KERNEL.launches >= len(tracked) - 1

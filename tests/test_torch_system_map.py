@@ -51,6 +51,19 @@ from orb_slam_tpu_torch.slam_map.map_state import MapConfig
 from tests.test_system_vo import run_sequence
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two CPU threads for torch while this module runs. The system runs
+    hundreds of small ops per frame; with torch's default of one thread
+    per core, several test processes on one host make those threads wait
+    on each other, and the float sums' order follows the host's core
+    count. Two threads keep the run short and its sums in one order."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_system(jsys):
     """The port's SLAMSystem holding a copy of the JAX system's state."""
     jc = jsys.cfg
@@ -171,12 +184,17 @@ def test_process_batch_tracks_and_maps():
 
 
 def test_unported_states_raise():
+    """Formerly: a system not yet WORKING raised NotImplementedError. With
+    the initialisation ported the same call runs: a blank frame has no
+    keypoints, so the system stays before initialisation, and raises
+    nothing."""
     s = tsys.SLAMSystem(tsys.SlamConfig(orb=ORBConfig(n_features=100, n_levels=2),
                                         camera=CameraModel(100.0, 100.0, 64.0, 48.0,
                                                            width=128, height=96)),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        s.process_batch([np.zeros((96, 128), np.float32)])
+    out = s.process_batch([np.zeros((96, 128), np.float32)] * 2)
+    assert out == [None, None] and s.state == tsys.NO_IMAGES_YET
+    assert s.frame_id == 2 and s.n_keyframes == 0
 
 
 def test_system_defaults_to_the_card():
