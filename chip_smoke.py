@@ -4,7 +4,9 @@ main-path shapes, then drives the port's three detection paths over 64
 frames: the FAST extract-and-track main path, the Harris
 (nScoreType=0) extract-and-track path built from a settings file, and the
 cell-fused detector; then the mapping path from a seeded map and the
-whole system from raw frames through its own two-view initialisation.
+whole system from raw frames through its own two-view initialisation,
+and that system lost in a blackout and relocalised against its keyframe
+database.
 
     python3 chip_smoke.py
 
@@ -79,10 +81,52 @@ Phases (any failure raises and the exit code is non-zero):
      the final map at the default configuration; and the split of one
      local-BA solver step at P=2048 and at P=16384
      (profile_paths.ba_stage_split).
+ 10. init path: the system at the SlamConfig defaults (loop closing and
+     relocalisation off) from raw frame 0 through its own two-view
+     initialisation, 66 frames through process_batch at chunk 8. Checks:
+     WORKING within 10 frames, >= 90% of the later frames tracked, >= 6
+     keyframes, keyframe ATE <= 2% of the path, K1 once per extraction, K2
+     at least once per tracked frame;
+ 11. initialize_two_view on the init path's successful inputs, card
+     against CPU on the same minimal sets, and timed (CUDA events) with its
+     linalg parts split out;
+ 12. relocalisation path (profile_paths.reloc_path): the system with
+     relocalisation on, loop closing off and the shipped 95,118-word
+     vocabulary (ORBConfig(), MapConfig(), bow_slots 1000, 128 EPnP
+     hypotheses), raw frames 0-47 of the mapping trajectory through
+     process_batch at chunk 8, 3 uniform-gray frames (a blackout), then the
+     frames of poses 20-35 again. Checks: LOST after the blackout with no
+     auto-reset (> 5 keyframes); relocalised within the first 3 revisit
+     frames; the relocalised camera centre, under the keyframe
+     trajectory's Sim3 alignment, within 2% of the mapped path's length
+     of the ground truth; every later revisit frame tracked and the
+     keyframe ATE <= 2%; K1 once per extraction, K2 at least once inside
+     every _relocalize that reaches EPnP; all outputs finite. Prints the
+     _relocalize split by stage (profile_paths.relocalize_split) of the
+     successful call and of a failed call on a blank frame, the BoW add
+     per keyframe integration, and ms/frame from a second run without
+     the stage clock;
+ 13. place recognition and EPnP on the card, timed with CUDA events
+     (`_relocalize` reads counts on the host: no graph replay):
+     transform + bow_vector of the relocalised frame's 1000 descriptors
+     on the shipped tree and on a synthetic full k=10, L=6 tree
+     (1,111,111 nodes, ORBvoc.txt's shape; profile_paths.synthetic_tree),
+     words and ids equal to the CPU's and weights within 1e-6; l1_score
+     against a 256-row database (scores within 1e-6 of the CPU's, the
+     candidates equal, and the nearest accumulated score's margin to the
+     0.75 cut); epnp_ransac on the successful call's 1000 rows and 128
+     four-point sets, card against CPU: inlier counts within 1%, flags
+     equal on >= 99% of rows, the pose refined by pose_optimize on the
+     inliers within 1e-3 (the best hypothesis is printed: a four-point
+     set's null space is four-dimensional rounding noise, so the winner
+     among equally good hypotheses can differ); one _relocalize from the
+     saved state on the card and the CPU with the same sets: the same
+     accept decision, pose within 1e-3.
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last three lines are the kernel table as JSON (launches from
 the path that runs the kernel: K1 and K2 the FAST path, K3 the Harris
-path, K4 the cell-fused run; `init_path_launches` those of phase 10;
+path, K4 the cell-fused run; `init_path_launches` those of phase 10,
+`reloc_path_launches` those of phase 12's checked run;
 `minmax_floor_ms` for the stencil kernels),
 the card's name and power limit, and
 {"ok": true, "device": ...}.
@@ -547,9 +591,10 @@ def system_state(s):
         local_mask=None if s.local_mask is None else s.local_mask.clone())
 
 
-def integrate_from(snap, frame, obs, n_in, pose, device):
-    """One _integrate_keyframe on `device` from a saved state; returns the
-    system and the host-clock seconds it took."""
+def restore(snap, frame, device):
+    """(a SLAMSystem on `device` holding a state saved by system_state, the
+    frame on `device`), and the keyframe database if one was saved."""
+    from orb_slam_tpu_torch.convert import database_from_numpy
     from orb_slam_tpu_torch.pipeline import system as slam
     from orb_slam_tpu_torch.slam_map.map_state import MapState
 
@@ -562,15 +607,32 @@ def integrate_from(snap, frame, obs, n_in, pose, device):
     for k, v in snap["scalars"].items():
         setattr(s, k, v)
     s.local_mask = None if snap["local_mask"] is None else snap["local_mask"].to(device)
+    if "db" in snap:
+        s.vocab = snap["vocab"]
+        s.db = database_from_numpy(s.vocab, snap["db"], device=device)
     fr = slam.FrameData(*(t.to(device) for t in (frame.xy, frame.desc, frame.octave,
                                                   frame.angle, frame.valid)),
                         frame.frame_id, frame.timestamp)
+    return s, fr
+
+
+def timed(fn, device):
+    """(fn(), host-clock seconds), the device synchronized at both ends."""
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     sync()
     t = time.perf_counter()
-    s._integrate_keyframe(fr, obs.to(device), n_in, pose=pose)
+    out = fn()
     sync()
-    return s, time.perf_counter() - t
+    return out, time.perf_counter() - t
+
+
+def integrate_from(snap, frame, obs, n_in, pose, device):
+    """One _integrate_keyframe on `device` from a saved state; returns the
+    system and the host-clock seconds it took."""
+    s, fr = restore(snap, frame, device)
+    _, dt = timed(lambda: s._integrate_keyframe(fr, obs.to(device), n_in, pose=pose),
+                  device)
+    return s, dt
 
 
 def mapping_path(dev, card, kernels, scene):
@@ -925,6 +987,264 @@ def two_view_phases(args, card):
     return ms
 
 
+def database_state(db):
+    """A host copy of a keyframe database's rows and active flags."""
+    return dict(bow_ids=db.bow_ids.cpu().numpy(), bow_w=db.bow_w.cpu().numpy(),
+                active=db.active.copy())
+
+
+def relocalize_from(snap, sets, device):
+    """One _relocalize of the saved frame on `device` from a saved state,
+    drawing the given minimal sets; returns (accepted, last_pose, n_relocs,
+    host-clock seconds)."""
+    s, fr = restore(snap, snap["frame"], device)
+    queue = [idx.to(device) for idx in sets]
+    s._reloc_sets = lambda valid: queue.pop(0)
+    ok, dt = timed(lambda: s._relocalize(fr), device)
+    return ok, s.last_pose.copy(), s.n_relocs, dt
+
+
+def split_line(split):
+    """'stage a/b/... ms, ...' of a relocalize_split record, one time per
+    run of the stage."""
+    return ", ".join(f"{k[6:]} " + "/".join(f"{v * 1e3:.3f}" for v in vs) + " ms"
+                     for k, vs in split.items())
+
+
+def reloc_phase(dev, card, kernels, scene):
+    """Phase 12 (module docstring). Returns (K1..K4 launches of the checked
+    run, what phase 13 reuses: the system, the successful call's record,
+    its saved state and its last EPnP inputs)."""
+    from orb_slam_tpu_torch import profile_paths as pp
+    from orb_slam_tpu_torch.pipeline import system as slam
+
+    s = pp.reloc_system(scene, dev)
+    extractions = [0]
+    for ex in (s.extractor, s.extractor_init):
+        def counted(img, forward=ex.forward):
+            extractions[0] += 1
+            return forward(img)
+        ex.forward = counted
+    # per _relocalize call: K2 launches inside it and the state before it;
+    # every epnp_ransac call's inputs
+    per_call, epnp_calls = [], []
+    relocalize = s._relocalize
+
+    def watched(frame):
+        snap = dict(system_state(s), cfg=s.cfg, vocab=s.vocab,
+                    db=database_state(s.db), frame=frame)
+        k2 = kernels["K2"].launches
+        n_epnp = len(epnp_calls)
+        ok = relocalize(frame)
+        per_call.append(dict(k2=kernels["K2"].launches - k2,
+                             epnp=len(epnp_calls) - n_epnp, snap=snap if ok else None))
+        return ok
+
+    ransac = slam.epnp_ransac
+
+    def recorded_ransac(pw, uv, valid, inv_s2, K, **kw):
+        epnp_calls.append((pw.clone(), uv.clone(), valid.clone(), inv_s2.clone(), K,
+                           kw["idx"].clone()))
+        return ransac(pw, uv, valid, inv_s2, K, **kw)
+
+    s._relocalize = watched
+    stages = {}
+    s._stage_timer = pp.StageClock(stages)
+    slam.epnp_ransac = recorded_ransac
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    try:
+        r = pp.reloc_path(scene, dev, system=s)
+    finally:
+        slam.epnp_ransac = ransac
+    launches = {name: k.launches for name, k in kernels.items()}
+
+    calls, gt, rev = r["calls"], r["gt"], r["revisit"]
+    for c, w in zip(calls, per_call):
+        c.update(w)
+    rmse, align, length = pp.reloc_alignment(s, gt)
+    first_fid = pp.RELOC_MAPPED + pp.RELOC_BLACKOUT
+    good = [c for c in calls if c["ok"]]
+    ok_call = good[0] if good else None
+    reloc_i = None if ok_call is None else ok_call["frame_id"] - first_fid
+    err = float("nan")
+    if reloc_i is not None and 0 <= reloc_i < len(rev) and rev[reloc_i] is not None:
+        err = pp.aligned_centre_error(align, gt, rev[reloc_i], ok_call["frame_id"])
+    ab = r["after_blackout"]
+    m = s.map
+    outs = [p for p in r["mapped"] + r["revisit"] if p is not None]
+    finite = (all(np.isfinite(p).all() for p in outs)
+              and bool(torch.isfinite(m.kf_pose[m.kf_valid]).all())
+              and bool(torch.isfinite(m.pt_pos[m.pt_valid]).all()))
+    blank = [c for c in calls if c["frame_id"] < first_fid]
+    print(f"reloc path: {r['n_frames']} raw frames 640x480 through process_batch at "
+          f"chunk {s.cfg.track_chunk_size} (frames 0-{pp.RELOC_MAPPED - 1} of "
+          f"lateral_trajectory(step={pp.MAPPING_STEP}, yaw_rate={pp.MAPPING_YAW}), "
+          f"{pp.RELOC_BLACKOUT} uniform-gray frames, poses {pp.RELOC_REVISIT[0]}-"
+          f"{pp.RELOC_REVISIT[1] - 1} again), ORBConfig(), MapConfig(), bow_slots "
+          f"{s.cfg.bow_slots}, the shipped {s.vocab.n_words}-word vocabulary: "
+          f"{sum(p is not None for p in r['mapped'])} of {len(r['mapped'])} mapped "
+          f"frames tracked; after the blackout {slam.STATE_NAMES[ab['state']]} with "
+          f"{ab['n_keyframes']} keyframes, lost_count {ab['lost_count']}; "
+          f"{len(calls)} _relocalize calls ({len(blank)} on blank frames), n_relocs "
+          f"{s.n_relocs}, relocalised at revisit frame {reloc_i}, its aligned centre "
+          f"{err:.5f} m off ({err / length:.5f} of the {length:.4f} m mapped path); "
+          f"{sum(p is not None for p in rev)} of {len(rev)} revisit frames tracked; "
+          f"{s.kf_counter} keyframes inserted, {s.n_keyframes} live; keyframe ATE "
+          f"{rmse:.5f} ({rmse / length:.5f} of the path); {extractions[0]} "
+          f"extractions; launches {launches}; per call (frame, ok, EPnP calls, K2): "
+          f"{[(c['frame_id'], c['ok'], c['epnp'], c['k2']) for c in calls]}; "
+          f"{r['seconds'] * 1e3 / r['n_frames']:.3f} ms/frame with the stage clock on; "
+          f"{card}")
+    if ab["state"] != slam.LOST or ab["n_keyframes"] <= 5:
+        raise AssertionError(f"reloc path: after the blackout {ab}")
+    if reloc_i is None or not 0 <= reloc_i < 3 or s.n_relocs < 1:
+        raise AssertionError(f"reloc path: not relocalised within 3 revisit frames "
+                             f"({reloc_i}, n_relocs {s.n_relocs})")
+    if not err <= MAX_ATE_SHARE * length:
+        raise AssertionError(f"reloc path: relocalised centre {err} m off")
+    if any(p is None for p in rev[reloc_i + 1:]) or not rmse <= MAX_ATE_SHARE * length:
+        raise AssertionError(f"reloc path: revisit frames lost or keyframe ATE {rmse}")
+    if not finite:
+        raise AssertionError("reloc path: non-finite output")
+    if (launches["K1"] != extractions[0] or launches["K3"] or launches["K4"]
+            or any(c["epnp"] and c["k2"] < 1 for c in calls)):
+        raise AssertionError(f"reloc path: launches {launches}, {extractions[0]} "
+                             f"extractions")
+    print(f"_relocalize split, the successful call (frame {ok_call['frame_id']}; ms per "
+          f"stage, each candidate tried): {split_line(ok_call['split'])}; {card}")
+    if blank:
+        print(f"_relocalize split, a failed call on a blank frame (frame "
+              f"{blank[0]['frame_id']}): {split_line(blank[0]['split'])}; {card}")
+    n_kf = len(stages.get("BoW add", []))
+    if n_kf:
+        print(f"BoW add (transform, bow_vector, database add): "
+              f"{sum(stages['BoW add']) * 1e3 / n_kf:.3f} ms per keyframe integration "
+              f"over {n_kf} integrations; {card}")
+
+    # the path again without recording or stage clock, for ms/frame
+    t = pp.reloc_path(scene, dev, record=False)
+    print(f"reloc path timing: {t['seconds'] * 1e3 / t['n_frames']:.3f} ms/frame "
+          f"without the stage clock; n_relocs {t['system'].n_relocs}, first revisit "
+          f"frame tracked "
+          f"{next((i for i, p in enumerate(t['revisit']) if p is not None), None)}; "
+          f"{card}")
+    epnp_inputs = epnp_calls[sum(c["epnp"] for c in calls[:calls.index(ok_call) + 1]) - 1]
+    return launches, s, ok_call, epnp_inputs
+
+
+def place_phases(dev, card, s, ok_call, epnp_inputs):
+    """Phase 13 (module docstring)."""
+    from orb_slam_tpu_torch.convert import database_from_numpy
+    from orb_slam_tpu_torch.place import KeyFrameDatabase
+    from orb_slam_tpu_torch.place.vocabulary import bow_vector, l1_score, transform
+    from orb_slam_tpu_torch.profile_paths import synthetic_tree
+    from orb_slam_tpu_torch.slam_map.covisibility import covisibility_weights
+    from orb_slam_tpu_torch.solvers import epnp
+    from orb_slam_tpu_torch.solvers.pose_opt import pose_optimize
+
+    cpu = torch.device("cpu")
+    frame = ok_call["snap"]["frame"]
+    desc, valid = frame.desc, frame.valid
+    W = s.cfg.bow_slots
+
+    # transform + bow_vector, card against CPU, on two trees
+    for name, voc in (("shipped", s.vocab), ("synthetic k=10 L=6", synthetic_tree(10, 6))):
+        def bow(d, v, voc=voc):
+            words, nodes = transform(voc, d, v)
+            ids, w = bow_vector(words, voc.device_arrays(d.device)[3], n_slots=W)
+            return words, nodes, ids, w
+
+        g = bow(desc, valid)
+        c = bow(desc.cpu(), valid.cpu())
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(g[:3], c[:3]))
+        dw = float((g[3].cpu() - c[3]).abs().max())
+        ms = event_ms(lambda: bow(desc, valid))
+        t_only = event_ms(lambda: transform(voc, desc, valid))
+        print(f"transform + bow_vector, {name} tree ({len(voc.node_desc)} nodes, "
+              f"{voc.n_words} words, {voc.node_desc.nbytes / 1e6:.1f} MB of node "
+              f"descriptors), {int(valid.sum())} of {len(valid)} descriptors: "
+              f"{ms:.3f} ms ({t_only:.3f} ms transform alone; CUDA events, median "
+              f"of 10); card vs CPU: words, nodes and ids "
+              f"{'equal' if same else 'DIFFERENT'}, weights within {dw:.3g}; {card}")
+        if not same or dw > 1e-6:
+            raise AssertionError(f"transform/bow_vector on the {name} tree: the card "
+                                 f"and the CPU disagree")
+
+    # scores against every row of a 256-keyframe database
+    live = np.where(s.db.active)[0]
+    db = KeyFrameDatabase(s.vocab, 256, W, device=dev)
+    for row in range(256):
+        src = int(live[row % len(live)])
+        db.add(row, s.db.bow_ids[src], s.db.bow_w[src])
+    ids, w, _ = db.compute_bow(desc, valid)
+    sc_card = l1_score(ids, w, db.bow_ids, db.bow_w)
+    sc_cpu = l1_score(ids.cpu(), w.cpu(), db.bow_ids.cpu(), db.bow_w.cpu())
+    d_sc = float((sc_card.cpu() - sc_cpu).abs().max())
+    ms_dev = event_ms(lambda: l1_score(ids, w, db.bow_ids, db.bow_w))
+    ms_host = event_ms(lambda: db.scores_against_all(ids, w))
+    Wc = covisibility_weights(s.map).cpu().numpy()
+    cands, acc, cut = s.db.relocalisation_scores(ids, w, Wc)
+    db_cpu = database_from_numpy(s.vocab, database_state(s.db), device=cpu)
+    cands_cpu = db_cpu.detect_relocalisation_candidates(ids.cpu(), w.cpu(), Wc)
+    margin = min((abs(a - cut) for a in acc.values()), default=float("nan"))
+    print(f"scores_against_all at K=256, W={W}: {ms_dev:.3f} ms on the device "
+          f"(l1_score, one batched searchsorted), {ms_host:.3f} ms with the copy to "
+          f"the host; card vs CPU within {d_sc:.3g}; the relocalised frame's "
+          f"candidates {[int(c) for c in cands]} (CPU {[int(c) for c in cands_cpu]}), "
+          f"nearest accumulated score {margin:.4g} from the 0.75 cut {cut:.4g}; "
+          f"{card}")
+    if d_sc > 1e-6 or [int(c) for c in cands] != [int(c) for c in cands_cpu]:
+        raise AssertionError("database scores or candidates: card and CPU disagree")
+
+    # EPnP RANSAC on the successful call's last inputs and sets
+    pw, uv, ok, inv_s2, K, idx = epnp_inputs
+
+    def counts(args, sets):
+        p_, u_, v_, i_, K_ = args
+        Rs, ts = epnp.epnp_solve(p_[sets], u_[sets], K_)
+        err = epnp._reproj_err(Rs, ts, p_, u_, K_[0, 0], K_[1, 1], K_[0, 2], K_[1, 2])
+        return (v_ & (err * i_ < 5.991)).sum(-1)
+
+    res = []
+    for d in (dev, cpu):
+        args = [a.to(d) for a in (pw, uv, ok, inv_s2, K)]
+        R, t_, inl, n = epnp.epnp_ransac(*args, idx=idx.to(d))
+        T0 = torch.eye(4, device=d)
+        T0[:3, :3], T0[:3, 3] = R, t_
+        T_ref = pose_optimize(T0, args[0], args[1], args[3], inl, args[4])[0]
+        res.append((R.cpu(), t_.cpu(), inl.cpu(), int(n), T_ref.cpu(),
+                    int(torch.argmax(counts(args, idx.to(d))))))
+    g, c = res
+    agree = float((g[2] == c[2]).float().mean())
+    d_raw = float(max((g[0] - c[0]).abs().max(), (g[1] - c[1]).abs().max()))
+    d_ref = float((g[4] - c[4]).abs().max())
+    args = [pw, uv, ok, inv_s2, K]
+    ms = event_ms(lambda: epnp.epnp_ransac(*args, idx=idx))
+    print(f"epnp_ransac at {len(pw)} rows ({int(ok.sum())} valid), {len(idx)} "
+          f"hypotheses of {idx.shape[1]}: {ms:.3f} ms (CUDA events, median of 10); "
+          f"card vs CPU on the same sets: best hypothesis {g[5]}/{c[5]}, inliers "
+          f"{g[3]}/{c[3]}, inlier flags equal on {agree:.5f} of rows, max |d pose| "
+          f"{d_raw:.3g} as drawn and {d_ref:.3g} after pose_optimize on the inliers; "
+          f"{card}")
+    if (abs(g[3] - c[3]) > 0.01 * c[3] or agree < 0.99
+            or not d_ref <= MAX_CARD_CPU_POSE_DIFF):
+        raise AssertionError("epnp_ransac: the card and the CPU disagree")
+
+    # one _relocalize from the saved state, card and CPU, the same sets
+    snap = ok_call["snap"]
+    ok_g, T_g, n_g, s_g = relocalize_from(snap, ok_call["sets"], dev)
+    ok_c, T_c, n_c, s_c = relocalize_from(snap, ok_call["sets"], cpu)
+    d_T = float(np.abs(T_g - T_c).max())
+    print(f"card vs CPU, one _relocalize from the saved state of frame "
+          f"{frame.frame_id} with the same sets: accepted {ok_g}/{ok_c}, n_relocs "
+          f"{n_g}/{n_c}, max |d pose| {d_T:.3g}; {s_g * 1e3:.1f} ms on the card "
+          f"({card}), {s_c * 1e3:.1f} ms on the CPU")
+    if ok_g != ok_c or not ok_g or not d_T <= MAX_CARD_CPU_POSE_DIFF:
+        raise AssertionError("_relocalize: the card and the CPU disagree")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -1160,6 +1480,9 @@ def main():
     mapping_path(dev, card, kernels, scene)
     init_launches, two_view_args = init_path(dev, card, kernels, scene)
     two_view_phases(two_view_args, card)
+    reloc_launches, reloc_sys, ok_call, epnp_inputs = reloc_phase(dev, card, kernels,
+                                                                  scene)
+    place_phases(dev, card, reloc_sys, ok_call, epnp_inputs)
 
     launches = {"K1": fast_launches["K1"], "K2": fast_launches["K2"],
                 "K3": harris_launches["K3"], "K4": cell_launches["K4"]}
@@ -1182,6 +1505,7 @@ def main():
          "plain_timing": "graph replay",
          "minmax_floor_ms": floors.get(k),
          "init_path_launches": init_launches[k],
+         "reloc_path_launches": reloc_launches[k],
          **({"chain_floor_ms": k2_floor_ms} if k == "K2" else {})}
         for k, (name, source, replaces) in meta.items()]}))
     print(f"device: {card}")

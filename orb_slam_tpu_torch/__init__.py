@@ -8,9 +8,11 @@ bench.py times: ORB extraction, undistortion and tracking against a fixed
 map snapshot, chained through the motion model over a chunk of frames;
 with it the whole ORB extraction layer: FAST or Harris (nScoreType=0)
 ranking, the stacked and the per-level extractor, the cell-fused
-detector, and the settings file that selects them; local mapping; and
-the two-view initialisation with the tracking recovery ladder, so that
-`pipeline/system.py::SLAMSystem` runs from raw frames.
+detector, and the settings file that selects them; local mapping; the
+two-view initialisation with the tracking recovery ladder, so that
+`pipeline/system.py::SLAMSystem` runs from raw frames; and place
+recognition with relocalisation, so that a lost frame is recovered
+against the keyframe database.
 
 Layout (each subpackage mirrors its JAX counterpart):
   ops/        FAST, Harris, pyramid, selection, descriptors, matching;
@@ -21,7 +23,11 @@ Layout (each subpackage mirrors its JAX counterpart):
               Horn's Sim3
   slam_map/   MapState (a dataclass of tensors), covisibility, observations
   solvers/    pose-only Gauss-Newton (kernel K2), local BA, two-view
-              initialisation
+              initialisation, EPnP and its batched RANSAC
+  place/      vocabulary tree (transform, BoW vectors, L1 score, training,
+              npz and DBoW2 text files), the shipped vocabulary, the
+              keyframe database and its candidate queries
+  native/     the host C++ DBoW2 text parser, built with g++ at first use
   pipeline/   per-frame tracking, the fused extract+track chunk, mapping
               kernels, the SLAMSystem
   io/         numpy-only synthetic scene, settings files, trajectories

@@ -1,33 +1,38 @@
 """SLAMSystem: the sequential system, from raw frames to a tracked,
-mapped camera path.
+mapped camera path that recovers a lost frame against its keyframe
+database.
 
-Port of orb_slam_tpu/pipeline/system.py without place recognition,
-relocalisation and loop closing: `SlamConfig` (:64-170), `FrameData`
-(:172-183), the 2x-feature init extractor (:194-202), `reset` (:251-287),
-`make_frame` (:291-312), `process_batch` (:316-347) over
-`extract_track_chunk` (the chunk of :349-415), `_apply_chunk`
-(:417-492), `process` (:494-508), `_first_initialization` and
-`_try_initialize` (:512-657), `_refresh_local_mask` and `_track_mask`
-(:692-715), `_track` with the recovery ladder (:717-814),
-`_apply_counters`, `_mapper_accepting`, `_need_new_keyframe`,
-`_alloc_kf`, `_create_keyframe`, `_dispatch_keyframe` (:816-871),
-`_integrate_keyframe` (:873-901), `_local_mapping` (:988-1176),
-`_publish_mapped_pose`, `_compose_forward`, `_resolve_obs`,
-`_reclaim_points`, `_repair_spanning_tree` (:1178-1242) and
-`keyframe_trajectory` (:1246-1262).
+Port of orb_slam_tpu/pipeline/system.py without loop closing: `SlamConfig`
+(:64-170), `FrameData` (:172-183), the 2x-feature init extractor
+(:194-202), `reset` (:251-287), `make_frame` (:291-312), `process_batch`
+(:316-347) over `extract_track_chunk` (the chunk of :349-415),
+`_apply_chunk` (:417-492), `process` (:494-508), `_first_initialization`
+and `_try_initialize` (:512-657), `_setup_place_recognition` (:659-689),
+`_refresh_local_mask` and `_track_mask` (:692-715), `_track` with the
+recovery ladder (:717-814), `_apply_counters`, `_mapper_accepting`,
+`_need_new_keyframe`, `_alloc_kf`, `_create_keyframe`,
+`_dispatch_keyframe` (:816-871), `_integrate_keyframe` with its BoW add
+(:873-901), `_relocalize` (:912-986), `_local_mapping` with the database
+erase of a culled keyframe (:988-1176), `_publish_mapped_pose`,
+`_compose_forward`, `_resolve_obs`, `_reclaim_points`,
+`_repair_spanning_tree` (:1178-1242) and `keyframe_trajectory`
+(:1246-1262).
 
 The host policy is the JAX package's numpy, verbatim: the neighbour
 orders (`np.argsort`, quicksort order on equal weights), the free lists,
-the gauge choice, the 2N -> N compaction of the initial keyframes. Not
-ported yet: `_setup_place_recognition` (ROADMAP A item 3), so `db` and
-`loop_closer` stay None whatever the flags say and a lost frame is never
-relocalised; `_relocalize` itself raises NotImplementedError (item 4);
-loop closing (item 5); the sharded BA (`mesh`). The RANSAC draws of the
-initialisation come from a `torch.Generator` seeded with `cfg.seed` on
+the gauge choice, the 2N -> N compaction of the initial keyframes, the
+relocalisation candidates and their order. The keyframe database is built
+once the initial map exists, from the shipped vocabulary; `loop_closer`
+stays None until loop closing is ported (ROADMAP A item 5), so every
+keyframe takes the database's BoW add. Not ported yet: loop closing; the
+sharded BA (`mesh`). The RANSAC draws of the initialisation and of the
+relocalisation come from a `torch.Generator` seeded with `cfg.seed` on
 the system's device: they cannot repeat `jax.random`'s, and the parity
-tests replace `_minimal_sets` to inject JAX's. The chunk is not padded to
-`track_chunk_size`: frame b of a chunk depends only on frames 0..b, so the
-padded frames JAX computes and drops change nothing.
+tests replace `_minimal_sets` and `_reloc_sets` to inject JAX's. The
+chunk is not padded to `track_chunk_size`: frame b of a chunk depends
+only on frames 0..b, so the padded frames JAX computes and drops change
+nothing. `_relocalize` runs its stages under `_stage` ("reloc ...") so a
+stage timer can split it.
 """
 
 from __future__ import annotations
@@ -55,6 +60,8 @@ from orb_slam_tpu_torch.pipeline.mapping_kernels import (
 from orb_slam_tpu_torch.pipeline.track_kernels import (
     track_frame, track_prev_frame,
 )
+from orb_slam_tpu_torch.place import KeyFrameDatabase, train_vocabulary
+from orb_slam_tpu_torch.place.pretrained import load_pretrained
 from orb_slam_tpu_torch.slam_map.covisibility import (
     covisibility_weights, local_point_mask,
 )
@@ -63,7 +70,9 @@ from orb_slam_tpu_torch.slam_map.map_state import (
     remove_keyframe, remove_points,
 )
 from orb_slam_tpu_torch.slam_map.observations import refresh_point_stats
+from orb_slam_tpu_torch.solvers.epnp import epnp_ransac
 from orb_slam_tpu_torch.solvers.local_ba import apply_edge_outliers, bundle_adjust
+from orb_slam_tpu_torch.solvers.pose_opt import pose_optimize
 from orb_slam_tpu_torch.solvers.two_view import (
     initialize_two_view, sample_minimal_sets,
 )
@@ -214,9 +223,10 @@ class SLAMSystem:
         self.ref_kf_tracked = 0
         self.trajectory = []  # (frame_id, timestamp, T_cw numpy)
         self.lost_count = 0
-        # the RANSAC draws of the initialisation (JAX: a PRNGKey from
-        # cfg.seed, split per attempt)
+        # the RANSAC draws of the initialisation and the relocalisation
+        # (JAX: a PRNGKey from cfg.seed, split per draw)
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.vocab = cfg.vocabulary
         self.db = None
         self.loop_closer = None
         self.n_relocs = 0
@@ -385,6 +395,12 @@ class SLAMSystem:
         splits its key for each attempt, system.py:544)."""
         return sample_minimal_sets(valid, 200, 8, generator=self._gen)
 
+    def _reloc_sets(self, valid):
+        """The [128, 4] minimal sets of one candidate's EPnP RANSAC (JAX
+        splits its key for each candidate that reaches EPnP,
+        system.py:942)."""
+        return sample_minimal_sets(valid, 128, 4, generator=self._gen)
+
     def _try_initialize(self, frame: FrameData) -> bool:
         """Tracking::Initialize + CreateInitialMap (src/Tracking.cc:341-483):
         match against the reference frame, the two-view bootstrap, the map
@@ -511,7 +527,32 @@ class SLAMSystem:
             (frame.frame_id, frame.timestamp, self.last_pose.copy()))
         self.state = WORKING
         self._refresh_local_mask()
+        self._setup_place_recognition(k1, k2, ref, frame)
         return True
+
+    def _setup_place_recognition(self, k1, k2, ref, frame):
+        """The vocabulary (the shipped one unless the config names one; a
+        small tree trained on the two initial frames if none is shipped)
+        and the keyframe database on the system's device, with both
+        initial keyframes added, once the initial map exists (JAX
+        system.py:659-689; the reference loads ORBvoc.txt at startup,
+        main.cc:94-108). `loop_closer` stays None (ROADMAP A item 5)."""
+        cfg = self.cfg
+        if not (cfg.enable_loop_closing or cfg.enable_relocalisation):
+            return
+        if self.vocab is None:
+            self.vocab = load_pretrained()
+        if self.vocab is None:
+            descs = np.concatenate([
+                ref.desc[ref.valid].cpu().numpy(),
+                frame.desc[frame.valid].cpu().numpy(),
+            ])
+            self.vocab = train_vocabulary(descs, k=10, L=3, seed=cfg.seed)
+        self.db = KeyFrameDatabase(self.vocab, cfg.map.max_keyframes,
+                                   cfg.bow_slots, device=self.device)
+        for slot, fr in ((k1, ref), (k2, frame)):
+            ids, w, _ = self.db.compute_bow(fr.desc, fr.valid)
+            self.db.add(slot, ids, w)
 
     # ---------------------------------------------------------------- tracking
 
@@ -617,10 +658,80 @@ class SLAMSystem:
         return T_new
 
     def _relocalize(self, frame: FrameData) -> bool:
-        raise NotImplementedError(
-            f"frame {frame.frame_id} is lost: relocalisation (EPnP RANSAC "
-            "against the keyframe database) is not ported yet (ROADMAP A "
-            "item 4)")
+        """Tracking::Relocalisation (src/Tracking.cc:841-1010): BoW
+        candidates from the database; for each of the first 5, a match
+        against its bound features (TH_LOW, ratio 0.75), EPnP RANSAC,
+        pose optimisation, and the guided search (radius 10, distance 100,
+        then radius 3, distance 64 when the inliers land in [30, 50));
+        accepted at `min_reloc_inliers`, when the local map re-anchors on
+        the candidate."""
+        cfg = self.cfg
+        dev = self.device
+        m = self.map
+        P = m.pt_valid.shape[0]
+        kw = dict(p_local=cfg.p_local, width=cfg.camera.width,
+                  height=cfg.camera.height, bounds=self.img_bounds,
+                  scale_factor=cfg.map.scale_factor,
+                  n_levels=cfg.map.n_levels)
+        with self._stage("reloc BoW"):
+            ids, w, _ = self.db.compute_bow(frame.desc, frame.valid)
+        with self._stage("reloc candidates"):
+            W_np = covisibility_weights(m).cpu().numpy()
+            cands = self.db.detect_relocalisation_candidates(ids, w, W_np)
+        inv_s2 = 1.0 / (cfg.map.scale_factor
+                        ** (2.0 * frame.octave.to(torch.float32)))
+        xy = frame.xy.contiguous()
+        for cand in cands[:5]:
+            with self._stage("reloc match"):
+                bound = (m.kf_obs[cand] >= 0) & m.kf_feat_valid[cand]
+                idx, _, ok = match(
+                    frame.desc, m.kf_desc[cand], valid_a=frame.valid,
+                    valid_b=bound, max_dist=TH_LOW, nn_ratio=0.75, unique=True)
+                n_match = int(ok.sum())
+            if n_match < 15:
+                continue
+            with self._stage("reloc EPnP RANSAC"):
+                pids = m.kf_obs[cand][idx]
+                ok = ok & (pids >= 0)
+                pid_s = pids.clamp(0, P - 1).long()
+                ok = ok & m.pt_valid[pid_s]
+                pw = m.pt_pos[pid_s]
+                R, t, inl, n_in = epnp_ransac(pw, xy, ok, inv_s2, self.K_dev,
+                                              idx=self._reloc_sets(ok))
+                n_in = int(n_in)
+            if n_in < 10:
+                continue
+            with self._stage("reloc pose_optimize"):
+                T0 = torch.eye(4, device=dev)
+                T0[:3, :3] = R
+                T0[:3, 3] = t
+                T_opt, _, n_opt = pose_optimize(T0, pw, xy, inv_s2, inl, self.K_dev)
+                n_opt = int(n_opt)
+            if n_opt < 10:
+                continue
+            with self._stage("reloc guided rounds"):
+                res = track_frame(m, frame.xy, frame.desc, frame.octave,
+                                  frame.valid, T_opt, self.K_dev, radius=10.0,
+                                  max_dist=100, **kw)
+                n_good = int(res.n_inliers)
+                if 30 <= n_good < cfg.min_reloc_inliers:
+                    res2 = track_frame(m, frame.xy, frame.desc, frame.octave,
+                                       frame.valid, res.pose, self.K_dev,
+                                       radius=3.0, max_dist=64, **kw)
+                    if int(res2.n_inliers) > n_good:
+                        res, n_good = res2, int(res2.n_inliers)
+            if n_good >= cfg.min_reloc_inliers:
+                self.last_pose = res.pose.cpu().numpy()
+                self.velocity = np.eye(4, dtype=np.float32)
+                self.state = WORKING
+                self.n_relocs += 1
+                # re-anchor the local map on the candidate's neighbourhood
+                # (Tracking.cc:851-858)
+                self._refresh_local_mask(int(cand))
+                self.trajectory.append(
+                    (frame.frame_id, frame.timestamp, self.last_pose.copy()))
+                return True
+        return False
 
     def _apply_counters(self, res):
         """MapPoint::IncreaseVisible/Found."""
@@ -683,6 +794,10 @@ class SLAMSystem:
                 and bool(self.map.kf_valid[slot])):
             raise NotImplementedError(
                 "loop closing is not ported yet (ROADMAP A item 5)")
+        elif self.db is not None and bool(self.map.kf_valid[slot]):
+            with self._stage("BoW add"):
+                ids, w, _ = self.db.compute_bow(frame.desc, frame.valid)
+                self.db.add(slot, ids, w)
         return slot
 
     def _stage(self, name):
@@ -868,6 +983,8 @@ class SLAMSystem:
                     self.free_kf.append(nb)
                     self.kf_order[nb] = -1
                     counts["kf_culled"] += 1
+                    if self.db is not None:
+                        self.db.erase(nb)
 
         with self._stage("final refresh+local mask"):
             self.map = refresh_point_stats(m, scale_factor=sf, n_levels=nl)

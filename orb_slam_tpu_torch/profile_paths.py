@@ -28,7 +28,16 @@ local-BA solver step (`ba_stage_split`) at chip_smoke.py's two shapes.
 With --spread, only `mapping_spread`: the mapping path's keyframe ATE
 after a Sim3 alignment and centre error over scene seeds and the order
 of BA's float sums, on the card and the CPU, and per seed the system
-from raw frames through its own initialisation. Needs a CUDA card.
+from raw frames through its own initialisation, and the relocalisation
+path (`reloc_path`: a blackout, then a revisit of a mapped stretch).
+Needs a CUDA card.
+
+`reloc_system`, `reloc_frames`, `reloc_path` and `relocalize_split` are
+also chip_smoke.py's phase 12: the system with relocalisation on and the
+shipped vocabulary, its frames, one run of the path with a record of
+every `_relocalize` call, and the stage clock that splits one call into
+BoW, candidate query and, per candidate, match, EPnP RANSAC,
+pose_optimize and the guided rounds.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from orb_slam_tpu_torch.io.synthetic import (
 from orb_slam_tpu_torch.io.trajectory import ate_rmse, camera_centers_from_cw
 from orb_slam_tpu_torch.pipeline import system as slam
 from orb_slam_tpu_torch.pipeline.chunk import extract_track_chunk
+from orb_slam_tpu_torch.place.pretrained import load_pretrained
 from orb_slam_tpu_torch.slam_map.map_state import MapConfig
 from orb_slam_tpu_torch.solvers import local_ba as ba
 
@@ -148,6 +158,156 @@ def init_system(scene, device) -> slam.SLAMSystem:
         enable_relocalisation=False), device=device)
 
 
+def reloc_system(scene, device) -> slam.SLAMSystem:
+    """A SLAMSystem at the SlamConfig defaults for the scene's camera, with
+    relocalisation on, loop closing off and the shipped vocabulary, to
+    start from raw frames."""
+    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy,
+                         width=scene.width, height=scene.height)
+    return slam.SLAMSystem(slam.SlamConfig(
+        camera=camera, enable_loop_closing=False, enable_relocalisation=True,
+        vocabulary=load_pretrained()), device=device)
+
+
+# the relocalisation path: raw frames 0..RELOC_MAPPED-1 along the mapping
+# trajectory, RELOC_BLACKOUT uniform-gray frames, then the frames of poses
+# RELOC_REVISIT[0]..RELOC_REVISIT[1]-1 again
+RELOC_MAPPED = 48
+RELOC_BLACKOUT = 3
+RELOC_REVISIT = (20, 36)
+BLACKOUT_GRAY = 128.0
+
+
+def reloc_frames(scene, device):
+    """(the ground-truth pose of each frame id [n, 4, 4], NaN for the
+    blackout frames; the frames [n, H, W] on `device`) of the
+    relocalisation path."""
+    poses = lateral_trajectory(RELOC_MAPPED, step=MAPPING_STEP, yaw_rate=MAPPING_YAW)
+    imgs = np.stack([scene.render_image(p) for p in poses])
+    revisit = list(range(*RELOC_REVISIT))
+    gray = np.full((RELOC_BLACKOUT,) + imgs.shape[1:], BLACKOUT_GRAY, imgs.dtype)
+    frames = np.concatenate([imgs, gray, imgs[revisit]])
+    gt = np.concatenate([poses, np.full((RELOC_BLACKOUT, 4, 4), np.nan, np.float32),
+                         poses[revisit]])
+    return gt, torch.from_numpy(frames).to(device)
+
+
+def relocalize_split(s: slam.SLAMSystem, frame, relocalize=None):
+    """One `s._relocalize(frame)` (or `relocalize(frame)`, a wrapped one)
+    under a stage clock: (its result,
+    {stage: [seconds of each time it ran]}) over the stages "reloc BoW",
+    "reloc candidates" and, for each candidate tried, "reloc match",
+    "reloc EPnP RANSAC", "reloc pose_optimize" and "reloc guided rounds"
+    (each reached only past the previous one's gate)."""
+    record = {}
+    timer = s._stage_timer
+    s._stage_timer = StageClock(record)
+    try:
+        ok = (relocalize or s._relocalize)(frame)
+    finally:
+        s._stage_timer = timer
+    return ok, record
+
+
+def reloc_path(scene, device, record=True, system=None):
+    """The relocalisation path on a fresh `reloc_system`: the mapped
+    frames, the blackout and the revisit, each one `process_batch` at the
+    config's chunk of 8 frames. With `record`, every
+    `_relocalize` call runs through `relocalize_split` and is kept with
+    the frame id, its result and the minimal sets it drew. `system`: a
+    `reloc_system` the caller made (and wrapped) itself. Returns a dict:
+    the system, the ground truth by frame id, the poses of the mapped and
+    the revisit frames, the state and keyframe count after the blackout,
+    the calls, the seconds of the whole run."""
+    gt, frames = reloc_frames(scene, device)
+    s = system or reloc_system(scene, device)
+    calls = []
+    if record:
+        relocalize, sets = s._relocalize, s._reloc_sets
+
+        def recorded_sets(valid):
+            idx = sets(valid)
+            calls[-1]["sets"].append(idx.clone())
+            return idx
+
+        def recorded(frame):
+            calls.append(dict(frame_id=frame.frame_id, frame=frame, sets=[]))
+            ok, split = relocalize_split(s, frame, relocalize)
+            calls[-1].update(ok=ok, split=split)
+            return ok
+
+        s._relocalize, s._reloc_sets = recorded, recorded_sets
+    sync = torch.cuda.synchronize if frames.is_cuda else (lambda: None)
+    n_map, n_black = RELOC_MAPPED, RELOC_BLACKOUT
+    sync()
+    t = time.perf_counter()
+    mapped = s.process_batch(frames[:n_map])
+    s.process_batch(frames[n_map:n_map + n_black])
+    after_blackout = dict(state=s.state, n_keyframes=s.n_keyframes,
+                          lost_count=s.lost_count)
+    revisit = s.process_batch(frames[n_map + n_black:])
+    sync()
+    return dict(system=s, gt=gt, mapped=mapped, revisit=revisit,
+                after_blackout=after_blackout, calls=calls,
+                seconds=time.perf_counter() - t, n_frames=len(frames))
+
+
+def reloc_alignment(s: slam.SLAMSystem, gt):
+    """(the live keyframes' ATE after a Sim3 alignment onto the ground
+    truth of their frame ids, the alignment as a function of camera
+    centres [n, 3], the ground-truth path length of the mapped frames)."""
+    rows = s.keyframe_trajectory()
+    fid = np.array([r[0] for r in rows])
+    est = np.stack([r[1] for r in rows]).astype(np.float64)
+    gt_c = camera_centers_from_cw(np.asarray(gt, np.float64))
+    rmse, _ = ate_rmse(est, gt_c[fid])
+    sc, R, t = horn_sim3(torch.from_numpy(gt_c[fid].astype(np.float32)),
+                         torch.from_numpy(est.astype(np.float32)))
+    align = lambda c: float(sc) * np.asarray(c, np.float64) @ R.double().numpy().T \
+        + t.double().numpy()
+    mapped = gt_c[:RELOC_MAPPED]
+    length = float(np.linalg.norm(np.diff(mapped, axis=0), axis=1).sum())
+    return rmse, align, length
+
+
+def synthetic_tree(k: int, L: int, seed: int = 0):
+    """A complete k-ary vocabulary tree of depth L with random node
+    descriptors (scripts/vocab_scale_study.py::synth_full_tree, which
+    imports the JAX package): at k=10, L=6 the 1,111,111 nodes and
+    1,000,000 words of the reference's ORBvoc.txt, ~36 MB of node
+    descriptors."""
+    from orb_slam_tpu_torch.place.vocabulary import Vocabulary
+
+    rng = np.random.default_rng(seed)
+    n_nodes = (k ** (L + 1) - 1) // (k - 1)
+    n_words = k ** L
+    n_internal = n_nodes - n_words
+    children = np.full((n_nodes, k), -1, np.int32)
+    internal = np.arange(n_internal, dtype=np.int64)
+    children[:n_internal] = internal[:, None] * k + 1 + np.arange(k)[None, :]
+    node_desc = rng.integers(0, 2 ** 32, (n_nodes, 8), dtype=np.uint32).view(np.int32)
+    node_desc[0] = 0
+    is_leaf = np.zeros(n_nodes, bool)
+    is_leaf[n_internal:] = True
+    word_of_node = np.full(n_nodes, -1, np.int32)
+    word_of_node[n_internal:] = np.arange(n_words)
+    level = np.repeat(np.arange(L + 1, dtype=np.int32), [k ** i for i in range(L + 1)])
+    return Vocabulary(
+        children=children, node_desc=node_desc, is_leaf=is_leaf,
+        word_of_node=word_of_node,
+        node_of_word=np.arange(n_internal, n_nodes, dtype=np.int32),
+        word_weight=rng.uniform(0.1, 2.0, n_words).astype(np.float32),
+        level_of_node=level, k=k, L=L)
+
+
+def aligned_centre_error(align, gt, T, fid):
+    """Metres between the camera centre of pose T, through a
+    `reloc_alignment` alignment, and the ground truth of frame `fid`."""
+    c = -T[:3, :3].T.astype(np.float64) @ np.asarray(T[:3, 3], np.float64)
+    c_gt = camera_centers_from_cw(np.asarray(gt[fid:fid + 1], np.float64))[0]
+    return float(np.linalg.norm(align(c[None])[0] - c_gt))
+
+
 def _atomic_scatter_add_(out, rows, index, values, live):
     """local_ba._scatter_add_ with CUDA's atomic index_add_ on the card,
     whose order of addition changes from run to run."""
@@ -226,6 +386,30 @@ def mapping_spread(card, N, seeds=(0, 1, 2, 3), cpu_seeds=(0, 1), device=None):
               f"lost_count {s.lost_count}, {s.kf_counter} keyframes, {len(fid)} "
               f"live, keyframe ATE {ate:.5f} ({ate / length:.5f} of the path, "
               f"scale {scale:.4f}) ({run_s:.1f} s); {card}", flush=True)
+        r = reloc_path(scene, card_dev, record=False)
+        print(f"spread seed {seed} reloc path, card: {reloc_summary(r)}; {card}",
+              flush=True)
+
+
+def reloc_summary(r):
+    """One line on a `reloc_path` result: the state after the blackout,
+    n_relocs, the first revisit frame tracked and its aligned camera-centre
+    error over the mapped path's length, the revisit frames tracked, the
+    keyframe ATE's share of the path."""
+    s, gt = r["system"], r["gt"]
+    rmse, align, length = reloc_alignment(s, gt)
+    rev = r["revisit"]
+    first = next((i for i, p in enumerate(rev) if p is not None), None)
+    err = (float("nan") if first is None else aligned_centre_error(
+        align, gt, rev[first], RELOC_MAPPED + RELOC_BLACKOUT + first))
+    ab = r["after_blackout"]
+    return (f"after the blackout {slam.STATE_NAMES[ab['state']]} with "
+            f"{ab['n_keyframes']} keyframes; n_relocs {s.n_relocs}, first revisit "
+            f"frame tracked {first}, its aligned centre {err:.5f} m off "
+            f"({err / length:.5f} of the {length:.4f} m mapped path); "
+            f"{sum(p is not None for p in rev)} of {len(rev)} revisit frames tracked; "
+            f"keyframe ATE {rmse:.5f} ({rmse / length:.5f}); {s.kf_counter} keyframes; "
+            f"{r['seconds'] * 1e3 / r['n_frames']:.3f} ms/frame")
 
 
 class StageClock:

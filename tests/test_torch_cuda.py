@@ -684,3 +684,112 @@ def test_init_to_working_on_card(dev):
     assert len(tracked) >= 4 and all(np.isfinite(p).all() for p in tracked)
     assert s.n_points > 50 and s.map.pt_pos.is_cuda
     assert k1.KERNEL.launches >= len(frames) and k2.KERNEL.launches >= len(tracked) - 1
+
+
+@pytest.fixture(scope="module")
+def shipped_vocabulary():
+    from orb_slam_tpu_torch.place.pretrained import load_pretrained
+
+    return load_pretrained()
+
+
+def _descs(n, seed):
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32).view(np.int32)
+    valid = rng.random(n) > 0.1
+    return torch.from_numpy(d), torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 4000])
+def test_transform_and_bow_on_card_match_cpu(dev, shipped_vocabulary, n):
+    """Words, node ids and BoW ids equal; BoW weights within 1e-6."""
+    from orb_slam_tpu_torch.place.vocabulary import bow_vector, transform
+
+    voc = shipped_vocabulary
+    d, v = _descs(n, n)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        words, nodes = transform(voc, d.to(device), v.to(device))
+        ids, w = bow_vector(words, voc.device_arrays(device)[3], n_slots=1000)
+        out[device.type] = [t.cpu() for t in (words, nodes, ids, w)]
+    g, c = out["cuda"], out["cpu"]
+    for a, b in zip(g[:3], c[:3]):
+        assert torch.equal(a, b)
+    assert float((g[3] - c[3]).abs().max()) <= 1e-6
+
+
+def test_database_scores_on_card_match_cpu(dev, shipped_vocabulary):
+    """A 64-row database filled on the card and on the CPU: scores within
+    1e-6, shared words and both candidate lists equal."""
+    from orb_slam_tpu_torch.place import KeyFrameDatabase
+
+    rng = np.random.default_rng(3)
+    dbs = {d.type: KeyFrameDatabase(shipped_vocabulary, 64, 500, device=d)
+           for d in (dev, torch.device("cpu"))}
+    base = [_descs(500, s) for s in range(20)]
+    for row in range(40):
+        d, v = base[row % 20]
+        if row >= 20:                              # re-observations
+            d = d ^ torch.from_numpy(rng.integers(0, 2, d.shape).astype(np.int32) << 3)
+        for db in dbs.values():
+            db.add(row, *db.compute_bow(d.to(db.device), v.to(db.device))[:2])
+    for db in dbs.values():
+        db.erase(7)
+    covis = rng.integers(0, 40, (64, 64)) * (rng.random((64, 64)) < 0.2)
+    covis = (np.triu(covis, 1) + np.triu(covis, 1).T).astype(np.int32)
+    q, qv = base[4]
+    got = {}
+    for k, db in dbs.items():
+        ids, w, _ = db.compute_bow(q.to(db.device), qv.to(db.device))
+        got[k] = (db.scores_against_all(ids, w), db.shared_words_against_all(ids),
+                  db.detect_relocalisation_candidates(ids, w, covis),
+                  db.detect_loop_candidates(ids, w, 4, [24], 0.01, covis))
+    g, c = got["cuda"], got["cpu"]
+    assert np.abs(g[0] - c[0]).max() <= 1e-6
+    np.testing.assert_array_equal(g[1], c[1])
+    assert g[2] == c[2] and len(g[2]) > 0 and g[3] == c[3]
+
+
+def test_epnp_ransac_on_card(dev):
+    """1000 rows, 128 four- and six-point sets drawn once: the card and the
+    CPU find inlier counts within 1%, flags equal on >= 99% of rows, and
+    poses refined by pose_optimize on the inliers within 1e-3 (the winner
+    among equally good hypotheses is decided by each device's eigensolver:
+    the control points' PCA signs, and a four-point set's null-space
+    basis; see solvers/epnp.py). Nothing raises on a set of equal
+    points."""
+    from orb_slam_tpu_torch.solvers import epnp
+    from orb_slam_tpu_torch.solvers.pose_opt import pose_optimize
+    from orb_slam_tpu_torch.solvers.two_view import sample_minimal_sets
+
+    rng = np.random.default_rng(1000)
+    n = 1000
+    pw = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                   rng.uniform(4, 10, n)], 1).astype(np.float32)
+    t = np.array([0.5, -0.3, 1.0], np.float32)
+    uv = (pw[:, :2] + t[:2]) / (pw[:, 2:3] + t[2]) * 500.0 + [320, 240]
+    uv = (uv + rng.normal(0, 0.5, uv.shape)).astype(np.float32)
+    uv[:300] += rng.uniform(30, 100, (300, 2)).astype(np.float32)
+    valid = torch.from_numpy(rng.random(n) > 0.05)
+    K = torch.tensor([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    args = [torch.from_numpy(pw), torch.from_numpy(uv), valid, torch.ones(n), K]
+    for min_set in (4, 6):
+        idx = sample_minimal_sets(valid, 128, min_set,
+                                  generator=torch.Generator().manual_seed(min_set))
+        res = {}
+        for d in (dev, torch.device("cpu")):
+            a = [x.to(d) for x in args]
+            R, t_, inl, n_in = epnp.epnp_ransac(*a, idx=idx.to(d), min_set=min_set)
+            T0 = torch.eye(4, device=d)
+            T0[:3, :3], T0[:3, 3] = R, t_
+            T_ref = pose_optimize(T0, a[0], a[1], a[3], inl, a[4])[0]
+            res[d.type] = [o.cpu() for o in (inl, n_in, T_ref)]
+        g, c = res["cuda"], res["cpu"]
+        assert abs(int(g[1]) - int(c[1])) <= 0.01 * int(c[1]) and int(c[1]) > 600
+        assert float((g[0] == c[0]).float().mean()) >= 0.99
+        assert float((g[2] - c[2]).abs().max()) <= 1e-3
+    same = [a.to(dev) for a in args]
+    same[0] = torch.zeros_like(same[0])
+    out = epnp.epnp_ransac(*same, idx=idx.to(dev))
+    torch.cuda.synchronize()
+    assert int(out[3]) >= 0

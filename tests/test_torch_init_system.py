@@ -36,8 +36,9 @@ empty): pose within 1e-4, inlier and match counts within max(2, 1%).
 
 `_track`'s LOST: a frame of random features loses both systems; with at
 most 5 keyframes both reset (Tracking.cc:272-279), otherwise the port
-counts `lost_count` and, with a keyframe database present, reaches
-`_relocalize`, which is not ported yet (ROADMAP A item 4).
+counts `lost_count` and, with a keyframe database of its keyframes,
+reaches `_relocalize`, which finds no match to draw EPnP sets from and
+leaves the camera LOST.
 
 Matching: `window_gate`, `rotation_consistency_mask` on histograms with
 many tied bins and `match(mutual, check_rotation)` are integer or exact
@@ -62,6 +63,8 @@ from orb_slam_tpu_torch.convert import camera_from_numpy, map_state_from_numpy
 from orb_slam_tpu_torch.ops import matching as tm
 from orb_slam_tpu_torch.pipeline import system as tsys
 from orb_slam_tpu_torch.pipeline.track_kernels import track_prev_frame
+from orb_slam_tpu_torch.place import KeyFrameDatabase
+from orb_slam_tpu_torch.place.pretrained import load_pretrained
 from orb_slam_tpu_torch.slam_map.map_state import MapConfig
 from tests.test_prev_frame import build_tracking_system
 from tests.test_torch_system_map import _two_threads  # noqa: F401 (autouse)
@@ -211,7 +214,7 @@ def test_lost_soon_after_init_resets(initialized):
     assert b.free_pt == list(range(b.cfg.map.max_points)) and b.trajectory == []
 
 
-def test_lost_counts_and_relocalisation_is_not_ported(initialized):
+def test_lost_counts_and_failed_relocalisation(initialized):
     _, b = copies(initialized)
     b.kf_counter = 6                        # no auto-reset past 5 keyframes
     assert b.process(features=garbage_features(200)) is None
@@ -219,10 +222,19 @@ def test_lost_counts_and_relocalisation_is_not_ported(initialized):
     np.testing.assert_array_equal(b.velocity, np.eye(4, dtype=np.float32))
     assert b.process(features=garbage_features(200, seed=6)) is None
     assert b.lost_count == 2
+    # a real keyframe database of the live keyframes: the garbage frame
+    # matches no candidate's features, so EPnP is never reached
     b.cfg = dc_replace(b.cfg, enable_relocalisation=True)
-    b.db = object()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        b.process(features=garbage_features(200, seed=7))
+    b.db = KeyFrameDatabase(load_pretrained(), b.cfg.map.max_keyframes,
+                            b.cfg.bow_slots, device="cpu")
+    for slot in np.where(b.map.kf_valid.numpy())[0]:
+        b.db.add(slot, *b.db.compute_bow(b.map.kf_desc[slot],
+                                         b.map.kf_feat_valid[slot])[:2])
+    draws = []
+    b._reloc_sets = lambda valid: draws.append(valid)
+    assert b.process(features=garbage_features(200, seed=7)) is None
+    assert b.state == tsys.LOST and b.lost_count == 3 and b.n_relocs == 0
+    assert draws == [] and b.db.active.sum() == b.n_keyframes
 
 
 @pytest.fixture(scope="module")
