@@ -5,8 +5,8 @@ frames: the FAST extract-and-track main path, the Harris
 (nScoreType=0) extract-and-track path built from a settings file, and the
 cell-fused detector; then the mapping path from a seeded map and the
 whole system from raw frames through its own two-view initialisation,
-and that system lost in a blackout and relocalised against its keyframe
-database.
+that system lost in a blackout and relocalised against its keyframe
+database, and that system closing a drifted loop.
 
     python3 chip_smoke.py
 
@@ -121,17 +121,52 @@ Phases (any failure raises and the exit code is non-zero):
      set's null space is four-dimensional rounding noise, so the winner
      among equally good hypotheses can differ); one _relocalize from the
      saved state on the card and the CPU with the same sets: the same
-     accept decision, pose within 1e-3.
+     accept decision, pose within 1e-3;
+ 14. loop path (profile_paths.loop_path): the system at the SlamConfig
+     defaults (loop closing and relocalisation on, the shipped
+     vocabulary, ORBConfig(), MapConfig(), chunk 8) from raw frames of a
+     wide version of the mapping scene along a sideways path out and the
+     same poses back (profile_paths.LOOP_SCENE_TEXT), the recent half of
+     the map drifted through the Sim3 profile_paths.LOOP_DRIFT after the
+     first keyframe at or past frame profile_paths.LOOP_DRIFT_AT. Checks:
+     WORKING within 10 frames, >= 90% of the later frames tracked, a loop
+     closed onto a keyframe of the first quarter of the path out, the
+     keyframe ATE after a Sim3 alignment just after the correction and at
+     the end at most MAX_LOOP_ATE_RATIO of the one just before it, just
+     after it within MAX_LOOP_AFTER_VS_JAX of the JAX package's CPU
+     reading on the same frames and at the end within
+     MAX_LOOP_ATE_VS_JAX of it (JAX_LOOP_ATE_*), K1 once per extraction,
+     K2 at least once per tracked frame, all outputs finite. Prints the
+     split by stage (profile_paths.loop_split) of the accepted pass and of
+     a detect with no candidate, the correction's group, merges and
+     essential-graph edges; the accepted pass again from its saved state
+     (profile_paths.loop_replay) on the card and the CPU with the same
+     sets (the same decision and candidate, S12 within MAX_LOOP_DS12,
+     keyframe poses within 1e-3); the same pass on the card with the
+     essential graph's step made a no-op, whose ATE must fail the checks
+     above (a control: the checks tell a corrected map from one corrected
+     only in the new keyframe's group); and ms/frame from a second run
+     without the stage clock;
+ 15. the loop closer's device calls on the accepted pass's own inputs,
+     timed with CUDA events around whole calls and held against the CPU:
+     sim3_ransac (1000 rows x 300 sets) and optimize_sim3 (s, R, t within
+     MAX_LOOP_DS12), search_by_sim3 and project_loop_points (flags equal
+     on >= 99%), fuse_points_into_keyframes at P=16384 (kf_obs equal on
+     >= 99.9%, remapped points within 2), optimize_essential_graph dense
+     at K=256 on the pass's graph and PCG at K=1024 on
+     profile_paths.chain_pose_graph (within MAX_LOOP_DGRAPH).
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last three lines are the kernel table as JSON (launches from
 the path that runs the kernel: K1 and K2 the FAST path, K3 the Harris
 path, K4 the cell-fused run; `init_path_launches` those of phase 10,
-`reloc_path_launches` those of phase 12's checked run;
+`reloc_path_launches` those of phase 12's checked run,
+`loop_path_launches` those of phase 14's;
 `minmax_floor_ms` for the stencil kernels),
 the card's name and power limit, and
 {"ok": true, "device": ...}.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -202,6 +237,28 @@ MIN_TRACKED_SHARE = 0.9
 MAX_TWO_VIEW_DR = 1e-3
 MAX_TWO_VIEW_DT = 1e-2
 MIN_TRI_AGREE = 0.99
+# the loop path: the JAX package's keyframe ATE on the same frames on the
+# CPU (python -m tests.test_torch_loop_e2e jax 0: 0.848 just before its
+# correction) just after it and at the end. The port's ATE just after the correction
+# and at the end may be at most MAX_LOOP_ATE_RATIO of its ATE just before
+# it: JAX's own correction reaches 0.649 of it on these frames (0.642 at
+# the end), short of a half, because the drift is one jump at a seam and
+# the essential graph spreads the loop's mismatch over the whole cycle,
+# the seam's edges included (ROADMAP C14), so the port is held to the
+# reference's ratio. Its ATE just after the correction may exceed JAX's by
+# MAX_LOOP_AFTER_VS_JAX, which still lies below the map before the
+# correction (0.800 on the card, 0.848 in JAX), and at the end by
+# MAX_LOOP_ATE_VS_JAX. The card against the CPU on one loop pass: S12 (and
+# the Sim3 solvers' s, R, t) and the essential graph's s, R, t, whose
+# card-vs-CPU readings were 1.04e-4 (dense, K=256) and 1.39e-4 (PCG,
+# K=1024, t of size ~4) on an NVIDIA H100 80GB HBM3: about twice the larger
+JAX_LOOP_ATE_AFTER = 0.5509683756972411
+JAX_LOOP_ATE = 0.5448967734480621
+MAX_LOOP_ATE_RATIO = 0.65
+MAX_LOOP_AFTER_VS_JAX = 1.1
+MAX_LOOP_ATE_VS_JAX = 1.5
+MAX_LOOP_DS12 = 1e-4
+MAX_LOOP_DGRAPH = 3e-4
 
 
 def device_line() -> str:
@@ -1004,10 +1061,11 @@ def relocalize_from(snap, sets, device):
     return ok, s.last_pose.copy(), s.n_relocs, dt
 
 
-def split_line(split):
-    """'stage a/b/... ms, ...' of a relocalize_split record, one time per
-    run of the stage."""
-    return ", ".join(f"{k[6:]} " + "/".join(f"{v * 1e3:.3f}" for v in vs) + " ms"
+def split_line(split, skip=6):
+    """'stage a/b/... ms, ...' of a relocalize_split or loop_split record,
+    one time per run of the stage, each name without its first `skip`
+    characters ("reloc ", "loop ")."""
+    return ", ".join(f"{k[skip:]} " + "/".join(f"{v * 1e3:.3f}" for v in vs) + " ms"
                      for k, vs in split.items())
 
 
@@ -1243,6 +1301,272 @@ def place_phases(dev, card, s, ok_call, epnp_inputs):
           f"({card}), {s_c * 1e3:.1f} ms on the CPU")
     if ok_g != ok_c or not ok_g or not d_T <= MAX_CARD_CPU_POSE_DIFF:
         raise AssertionError("_relocalize: the card and the CPU disagree")
+
+
+def to_device(x, d):
+    """x with every tensor on device d (MapStates, lists, tuples and dicts
+    taken apart)."""
+    from orb_slam_tpu_torch.slam_map.map_state import MapState
+
+    if torch.is_tensor(x):
+        return x.to(d)
+    if isinstance(x, MapState):
+        return x.replace(**{f.name: getattr(x, f.name).to(d)
+                            for f in dataclasses.fields(x)})
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_device(v, d) for v in x)
+    if isinstance(x, dict):
+        return {k: to_device(v, d) for k, v in x.items()}
+    return x
+
+
+# the loop closer's device calls whose inputs phase 14 records from the
+# accepted pass, for phase 15
+LOOP_CALLS = ("sim3_ransac", "optimize_sim3", "search_by_sim3",
+              "project_loop_points", "fuse_points_into_keyframes",
+              "optimize_essential_graph")
+
+
+@contextlib.contextmanager
+def recording_loop_calls(record):
+    """Inside it, the inputs of each LOOP_CALLS call of the loop closer go
+    into `record` (a dict, by name)."""
+    from orb_slam_tpu_torch.pipeline import loop_closing as lc
+
+    saved = {name: getattr(lc, name) for name in LOOP_CALLS}
+    for name, fn in saved.items():
+        def recorded(*a, name=name, fn=fn, **kw):
+            record[name] = (a, kw)
+            return fn(*a, **kw)
+        setattr(lc, name, recorded)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(lc, name, fn)
+
+
+@contextlib.contextmanager
+def essential_graph_off():
+    """Inside it, the loop closer's essential graph returns its base
+    vertices unchanged: the correction moves only the new keyframe's
+    group (the control of phase 14)."""
+    from orb_slam_tpu_torch.pipeline import loop_closing as lc
+
+    saved = lc.optimize_essential_graph
+    lc.optimize_essential_graph = lambda base_s, base_R, base_t, *a, **kw: (
+        base_s, base_R, base_t)
+    try:
+        yield
+    finally:
+        lc.optimize_essential_graph = saved
+
+
+def loop_ate_failures(before, after, end=None):
+    """The ATE checks of phase 14 that a loop correction fails, from the
+    keyframe ATE just before it, just after it and (if given) at the end
+    of the path: a list of descriptions, empty if all hold."""
+    failed = []
+    if not after <= MAX_LOOP_ATE_RATIO * before:
+        failed.append(f"{after:.5f} after the correction over {MAX_LOOP_ATE_RATIO} x "
+                      f"{before:.5f} before it")
+    if not after <= MAX_LOOP_AFTER_VS_JAX * JAX_LOOP_ATE_AFTER:
+        failed.append(f"{after:.5f} after the correction over {MAX_LOOP_AFTER_VS_JAX} x "
+                      f"JAX's {JAX_LOOP_ATE_AFTER:.5f}")
+    if end is not None and not end <= MAX_LOOP_ATE_RATIO * before:
+        failed.append(f"{end:.5f} at the end over {MAX_LOOP_ATE_RATIO} x {before:.5f} "
+                      f"before the correction")
+    if end is not None and not end <= MAX_LOOP_ATE_VS_JAX * JAX_LOOP_ATE:
+        failed.append(f"{end:.5f} at the end over {MAX_LOOP_ATE_VS_JAX} x JAX's "
+                      f"{JAX_LOOP_ATE:.5f}")
+    return failed
+
+
+def loop_phase(dev, card, kernels):
+    """Phase 14 (module docstring). Returns (K1..K4 launches of the checked
+    run, the accepted closure's record, the inputs of its device calls)."""
+    from orb_slam_tpu_torch import profile_paths as pp
+
+    scene = pp.loop_scene()
+    s = pp.loop_system(scene, dev)
+    extractions = [0]
+    for ex in (s.extractor, s.extractor_init):
+        def counted(img, forward=ex.forward):
+            extractions[0] += 1
+            return forward(img)
+        ex.forward = counted
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    r = pp.loop_path(scene, dev, system=s)
+    launches = {name: k.launches for name, k in kernels.items()}
+
+    out, poses, closures = r["out"], r["poses"], r["closures"]
+    first = next((i for i, p in enumerate(out) if p is not None), len(out))
+    tracked = sum(p is not None for p in out[first:])
+    n_after = len(out) - first
+    ate, scale, length, _ = pp.keyframe_ate(s, poses)
+    fid = s.map.kf_frame_id.cpu().numpy()
+    c = closures[0] if closures else None
+    m = s.map
+    finite = (all(np.isfinite(p).all() for p in out if p is not None)
+              and bool(torch.isfinite(m.kf_pose[m.kf_valid]).all())
+              and bool(torch.isfinite(m.pt_pos[m.pt_valid]).all()))
+    print(f"loop path: {len(out)} raw frames 640x480 through process_batch at chunk "
+          f"{s.cfg.track_chunk_size} ({pp.LOOP_SCENE_TEXT}), the SlamConfig defaults "
+          f"(loop closing and relocalisation on, the shipped vocabulary), the drift "
+          f"{pp.LOOP_DRIFT} (scale, translation) after the first keyframe at or past "
+          f"frame {pp.LOOP_DRIFT_AT}: "
+          f"{pp.loop_summary(r)}; {extractions[0]} extractions; launches {launches}; "
+          f"{card}")
+    if first >= INIT_WITHIN:
+        raise AssertionError(f"loop path: WORKING at frame {first}")
+    if tracked < MIN_TRACKED_SHARE * n_after:
+        raise AssertionError(f"loop path: {tracked} of {n_after} frames tracked")
+    if s.n_loops_closed < 1 or c is None:
+        raise AssertionError("loop path: no loop closed")
+    if not fid[c["cand"]] < pp.LOOP_CAND_BEFORE:
+        raise AssertionError(f"loop path: the loop keyframe's frame {fid[c['cand']]} is "
+                             f"not among the first {pp.LOOP_CAND_BEFORE}")
+    failed = loop_ate_failures(c["ate_before"], c["ate_after"], ate)
+    if failed:
+        raise AssertionError(f"loop path: keyframe ATE {failed}")
+    if not finite:
+        raise AssertionError("loop path: non-finite output")
+    if (launches["K1"] != extractions[0] or launches["K2"] < tracked
+            or launches["K3"] or launches["K4"]):
+        raise AssertionError(f"loop path: launches {launches}, {extractions[0]} "
+                             f"extractions, {tracked} frames tracked")
+    closing = next(p for p in r["passes"] if p["frame_id"] == c["frame_id"])
+    print(f"loop closing split, the accepted pass (frame {c['frame_id']}, keyframe "
+          f"{c['new_kf']} to {c['cand']}; ms per stage, each candidate tried): "
+          f"{split_line(closing['split'], 5)}; {card}")
+    plain = [p for p in r["passes"] if list(p["split"]) == ["loop detect"]]
+    if plain:
+        print(f"loop closing split, a detect with no candidate (frame "
+              f"{plain[-1]['frame_id']}): {split_line(plain[-1]['split'], 5)}; "
+              f"{len(plain)} of {len(r['passes'])} passes stopped there; {card}")
+    print(f"loop correction: n_loops_closed {s.n_loops_closed}, group of "
+          f"{c['group']} keyframes, {c['merged']} points merged by the fuse, "
+          f"{c['loop_connections']} loop connections, {c['edges']} edges in the "
+          f"essential graph ({c['solver']}); {card}")
+
+    # the accepted pass again from its saved state, card and CPU
+    record = {}
+    s_g, hit_g, sec_g = pp.loop_replay(c, dev, within=recording_loop_calls(record))
+    s_c, hit_c, sec_c = pp.loop_replay(c, torch.device("cpu"))
+    m_g, m_c = s_g.map, s_c.map
+    live = m_c.kf_valid
+    dS = max(float((a - b).abs().max()) for a, b in zip(hit_g["S12"], hit_c["S12"]))
+    dT = float((m_g.kf_pose.cpu()[live] - m_c.kf_pose[live]).abs().max())
+    print(f"card vs CPU, the accepted loop-closing pass from its saved state with "
+          f"the same sets: n_loops_closed {s_g.n_loops_closed}/{s_c.n_loops_closed}, "
+          f"candidate {hit_g.get('cand')}/{hit_c.get('cand')}, max |d S12| {dS:.3g}, "
+          f"max |d pose| {dT:.3g} over {int(live.sum())} keyframes; keyframe ATE "
+          f"after it {pp.keyframe_ate(s_g, poses)[0]:.5f} on the card (the path's "
+          f"{c['ate_after']:.5f}); {sec_g * 1e3:.1f} ms on the card ({card}), "
+          f"{sec_c * 1e3:.1f} ms on the CPU")
+    if (s_g.n_loops_closed != s_c.n_loops_closed or hit_g.get("cand") != hit_c.get("cand")
+            or not dS <= MAX_LOOP_DS12 or not dT <= MAX_CARD_CPU_POSE_DIFF):
+        raise AssertionError("loop closing pass: the card and the CPU disagree")
+
+    # the control: the same pass with the essential graph a no-op must
+    # fail the ATE checks
+    with essential_graph_off():
+        s_n, _, _ = pp.loop_replay(c, dev)
+    ate_n = pp.keyframe_ate(s_n, poses)[0]
+    failed = loop_ate_failures(c["ate_before"], ate_n)
+    print(f"control, the accepted pass with the essential graph a no-op (the new "
+          f"keyframe's group of {c['group']} corrected alone): keyframe ATE "
+          f"{c['ate_before']:.5f} -> {ate_n:.5f}; fails the checks: {failed or 'none'}; "
+          f"{card}")
+    if not failed:
+        raise AssertionError("loop path: the ATE checks pass a map whose essential "
+                             "graph did nothing")
+
+    # the path again without recording or stage clock, for ms/frame
+    t = pp.loop_path(scene, dev, record=False)
+    print(f"loop path timing: {t['seconds'] * 1e3 / t['n_frames']:.3f} ms/frame "
+          f"without the stage clock; n_loops_closed {t['system'].n_loops_closed}; "
+          f"{card}")
+    return launches, c, record
+
+
+def loop_timings(dev, card, record):
+    """Phase 15 (module docstring): the loop closer's device calls on the
+    accepted pass's inputs and a PCG pose graph at K = 1024, each timed on
+    the card (CUDA events around whole calls) and held against the CPU."""
+    from orb_slam_tpu_torch import profile_paths as pp
+    from orb_slam_tpu_torch.pipeline import loop_closing as lc
+
+    cpu = torch.device("cpu")
+
+    def both(name, args=None, kw=None, reps=10):
+        a, k = record[name] if args is None else (args, kw or {})
+        fn = getattr(lc, name)
+        g = fn(*to_device(a, dev), **to_device(k, dev))
+        t = time.perf_counter()
+        c = fn(*to_device(a, cpu), **to_device(k, cpu))
+        cpu_ms = (time.perf_counter() - t) * 1e3
+        ms = event_ms(lambda: fn(*to_device(a, dev), **to_device(k, dev)), reps)
+        return g, c, ms, cpu_ms
+
+    def d(x, y):
+        return float((x.cpu().double() - y.double()).abs().max())
+
+    lines, bad = [], []
+    g, c, ms, cpu_ms = both("sim3_ransac")
+    rows = record["sim3_ransac"][0][0].shape[0]
+    sets = record["sim3_ransac"][1]["idx"].shape[0]
+    dsrt = max(d(x, y) for x, y in zip(g[:3], c[:3]))
+    agree = float((g[3].cpu() == c[3]).float().mean())
+    lines.append(f"sim3_ransac at {rows} rows x {sets} sets: {ms:.3f} ms (CPU {cpu_ms:.1f} "
+                 f"ms); card vs CPU: max |d s, R, t| {dsrt:.3g}, inliers {int(g[4])}/"
+                 f"{int(c[4])}, flags equal on {agree:.5f}")
+    bad += [] if dsrt <= MAX_LOOP_DS12 and agree >= 0.995 else ["sim3_ransac"]
+    g, c, ms, cpu_ms = both("optimize_sim3")
+    dsrt = max(d(x, y) for x, y in zip(g[:3], c[:3]))
+    lines.append(f"optimize_sim3 at {rows} rows: {ms:.3f} ms (CPU {cpu_ms:.1f} ms); card "
+                 f"vs CPU: max |d s, R, t| {dsrt:.3g}, inliers {int(g[4])}/{int(c[4])}")
+    bad += [] if dsrt <= MAX_LOOP_DS12 and abs(int(g[4]) - int(c[4])) <= 0.01 * int(c[4]) + 1 \
+        else ["optimize_sim3"]
+    for name in ("search_by_sim3", "project_loop_points"):
+        g, c, ms, cpu_ms = both(name)
+        agree = float((g[1].cpu() == c[1]).float().mean())
+        lines.append(f"{name}: {ms:.3f} ms (CPU {cpu_ms:.1f} ms); card vs CPU: "
+                     f"{int(g[1].sum())}/{int(c[1].sum())} matches, flags equal on "
+                     f"{agree:.5f} of {g[1].shape[0]} features")
+        bad += [] if agree >= 0.99 else [name]
+    g, c, ms, cpu_ms = both("fuse_points_into_keyframes", reps=3)
+    a = record["fuse_points_into_keyframes"][0]
+    P = a[0].pt_valid.shape[0]
+    n_dst = sum(int(x) >= 0 for x in a[2])
+    obs_agree = float((g[0].kf_obs.cpu() == c[0].kf_obs).float().mean())
+    merged = [int((r.cpu() != torch.arange(P)).sum()) for r in (g[1], c[1])]
+    lines.append(f"fuse_points_into_keyframes at P={P} into {n_dst} keyframes: "
+                 f"{ms:.3f} ms (CPU {cpu_ms:.1f} ms); card vs CPU: kf_obs equal on "
+                 f"{obs_agree:.6f}, points remapped {merged[0]}/{merged[1]}")
+    bad += [] if obs_agree >= 0.999 and abs(merged[0] - merged[1]) <= 2 else ["fuse"]
+    g, c, ms, cpu_ms = both("optimize_essential_graph", reps=3)
+    K = record["optimize_essential_graph"][0][0].shape[0]
+    n_e = int(record["optimize_essential_graph"][0][8].sum())
+    dg = max(d(x, y) for x, y in zip(g, c))
+    lines.append(f"optimize_essential_graph dense at K={K} ({n_e} edges of the "
+                 f"accepted pass, 15 LM iterations): {ms:.3f} ms (CPU {cpu_ms:.1f} ms); "
+                 f"card vs CPU max |d s, R, t| {dg:.3g}")
+    bad += [] if dg <= MAX_LOOP_DGRAPH else ["essential graph dense"]
+    chain = pp.chain_pose_graph(1024)
+    g, c, ms, cpu_ms = both("optimize_essential_graph", chain,
+                            dict(iters=15, solver="cg"), reps=3)
+    dg = max(d(x, y) for x, y in zip(g, c))
+    lines.append(f"optimize_essential_graph PCG at K=1024 ({int(chain[8].sum())} edges, "
+                 f"15 LM iterations of 100 CG steps): {ms:.3f} ms (CPU {cpu_ms:.1f} ms); "
+                 f"card vs CPU max |d s, R, t| {dg:.3g}")
+    bad += [] if dg <= MAX_LOOP_DGRAPH else ["essential graph PCG"]
+    for line in lines:
+        print(f"{line}; CUDA events, medians; {card}")
+    if bad:
+        raise AssertionError(f"loop timings: the card and the CPU disagree: {bad}")
 
 
 def main():
@@ -1483,6 +1807,8 @@ def main():
     reloc_launches, reloc_sys, ok_call, epnp_inputs = reloc_phase(dev, card, kernels,
                                                                   scene)
     place_phases(dev, card, reloc_sys, ok_call, epnp_inputs)
+    loop_launches, _, loop_record = loop_phase(dev, card, kernels)
+    loop_timings(dev, card, loop_record)
 
     launches = {"K1": fast_launches["K1"], "K2": fast_launches["K2"],
                 "K3": harris_launches["K3"], "K4": cell_launches["K4"]}
@@ -1506,6 +1832,7 @@ def main():
          "minmax_floor_ms": floors.get(k),
          "init_path_launches": init_launches[k],
          "reloc_path_launches": reloc_launches[k],
+         "loop_path_launches": loop_launches[k],
          **({"chain_floor_ms": k2_floor_ms} if k == "K2" else {})}
         for k, (name, source, replaces) in meta.items()]}))
     print(f"device: {card}")

@@ -7,7 +7,8 @@ int32 tensors holding the same bits (`.view(np.int32)`); every other
 field keeps its dtype. The same holds for a vocabulary's node descriptors
 (`vocabulary_from_numpy`) and a keyframe database's BoW rows
 (`database_from_numpy`), so a test can carry a JAX system's vocabulary,
-database and map into the port.
+database and map into the port; `loop_closer_from_state` carries its loop
+closer's consistent groups and counter.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from orb_slam_tpu_torch.device import require_device
 from orb_slam_tpu_torch.frontend.orb_extractor import ORBConfig
 from orb_slam_tpu_torch.geometry.camera import CameraModel
+from orb_slam_tpu_torch.pipeline.loop_closing import LoopCloser
 from orb_slam_tpu_torch.place.database import KeyFrameDatabase
 from orb_slam_tpu_torch.place.vocabulary import Vocabulary
 from orb_slam_tpu_torch.slam_map.map_state import MapState
@@ -76,3 +78,15 @@ def database_from_numpy(voc: Vocabulary, arrays: dict,
     db.bow_w = torch.from_numpy(np.array(arrays["bow_w"], np.float32)).to(db.device)
     db.active = np.array(arrays["active"], bool)
     return db
+
+
+def loop_closer_from_state(db: KeyFrameDatabase, cfg, consistent_groups,
+                           last_loop_kf_counter: int) -> LoopCloser:
+    """A LoopCloser over `db` holding the JAX loop closer's state: its
+    consistent groups (a list of (set of keyframe slots, count)) and the
+    keyframe counter of its last closure."""
+    lc = LoopCloser(db, cfg)
+    lc.consistent_groups = [(set(int(k) for k in g), int(c))
+                            for g, c in consistent_groups]
+    lc.last_loop_kf_counter = int(last_loop_kf_counter)
+    return lc

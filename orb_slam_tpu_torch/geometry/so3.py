@@ -1,8 +1,9 @@
 """SO(3): the hat operator, the exponential map and unit quaternions.
 
 Port of orb_slam_tpu/geometry/so3.py: `_hat` (:18-29), `so3_exp`
-(:32-48), `quat_to_rot`, `rot_to_quat`, `quat_mul` and `quat_normalize`
-(:92-159). Batched over leading dimensions. Quaternions are [x, y, z, w].
+(:32-48), `so3_log` (:49-89), `quat_to_rot`, `rot_to_quat`, `quat_mul` and
+`quat_normalize` (:92-159). Batched over leading dimensions. Quaternions
+are [x, y, z, w].
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     version's Taylor branch below theta^2 = 1e-8."""
     theta2 = (w * w).sum(-1)
     small = theta2 < _EPS
-    theta2_safe = torch.where(small, 1.0, theta2)
+    # ones_like, not the Python scalar: under torch.func.jacfwd a scalar
+    # branch of torch.where gets a float64 tangent
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
     theta = torch.sqrt(theta2_safe)
     A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
     B = torch.where(small, 0.5 - theta2 / 24.0,
@@ -36,6 +39,39 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     W = _hat(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
     return eye + A[..., None, None] * W + B[..., None, None] * (W @ W)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation (..., 3, 3) -> axis-angle (..., 3). theta is
+    atan2(|vee| / 2, (tr - 1) / 2); below theta = 1e-5 the factor is the
+    Taylor series of theta / (2 sin theta); within 1e-3 of pi the axis
+    comes from the largest diagonal entry of (R + I) / 2 (the first on
+    ties, as jnp.argmax), its sign from vee."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    vee = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                       R[..., 0, 2] - R[..., 2, 0],
+                       R[..., 1, 0] - R[..., 0, 1]], -1)
+    vee_norm = torch.sqrt((vee * vee).sum(-1) + 1e-24)   # 2 sin(theta)
+    theta = torch.atan2(vee_norm * 0.5, cos_t)
+    small = theta < 1e-5
+    near_pi = theta > (torch.pi - 1e-3)
+    safe_norm = torch.where(small | near_pi, torch.ones_like(vee_norm), vee_norm)
+    k_generic = theta / safe_norm
+    k_small = 0.5 + theta * theta / 12.0
+    w_generic = torch.where(small[..., None], k_small[..., None],
+                            k_generic[..., None]) * vee
+    eye = torch.eye(3, dtype=R.dtype, device=R.device).expand(R.shape)
+    S = (R + eye) * 0.5
+    diag = torch.stack([S[..., 0, 0], S[..., 1, 1], S[..., 2, 2]], -1)
+    k = torch.argmax(diag, -1, keepdim=True)
+    d = torch.gather(diag, -1, k)[..., 0]
+    axis_unnorm = torch.gather(S, -1, k[..., None].expand(S.shape[:-1] + (1,)))[..., 0]
+    axis = axis_unnorm / torch.sqrt(torch.clamp(d, min=_EPS))[..., None]
+    axis = axis / torch.sqrt((axis * axis).sum(-1, keepdim=True) + _EPS)
+    sign = 1.0 - 2.0 * ((axis * vee).sum(-1) < 0.0).to(R.dtype)
+    w_pi = axis * (sign * theta)[..., None]
+    return torch.where(near_pi[..., None], w_pi, w_generic)
 
 
 def quat_to_rot(q: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,10 @@
 """Synthetic scene in numpy: ground-truth points, poses and rendered images.
 
 Port of orb_slam_tpu/io/synthetic.py: `SyntheticScene` (:21-244: the
-point cloud, `K` and `render_image`; the ring layout is not ported) and
-`lateral_trajectory` (:257-267),
+point cloud, with the ring layout of :35-36 and :54-64 drawn in the same
+rng order, so the points are the same bits; `K`, `observe`, the oracle
+features of :100-151, and `render_image`),
+`ring_trajectory` (:230-252) and `lateral_trajectory` (:257-267),
 without JAX, so a script on a machine without JAX has an image source.
 Added here: `billboard_depth`, the depth of the front-most rendered
 square under each pixel, `seed_map`, which builds the map the port's
@@ -38,15 +40,26 @@ class SyntheticScene:
     seed: int = 0
     extent: tuple = (8.0, 5.0, 4.0)
     depth_range: tuple = (4.0, 12.0)
+    # points on a cylindrical ring around the origin, at radii depth_range
+    # and heights within +-extent[1] (the loop-closing scenes)
+    ring: bool = False
     dist: tuple = (0.0, 0.0, 0.0, 0.0)
 
     def __post_init__(self):
         rng = np.random.default_rng(self.seed)
-        self.points = np.stack([
-            rng.uniform(-self.extent[0], self.extent[0], self.n_points),
-            rng.uniform(-self.extent[1], self.extent[1], self.n_points),
-            rng.uniform(*self.depth_range, self.n_points)],
-            1).astype(np.float32)
+        if self.ring:
+            theta = rng.uniform(0, 2 * np.pi, self.n_points)
+            radius = rng.uniform(*self.depth_range, self.n_points)
+            self.points = np.stack([
+                radius * np.sin(theta),
+                rng.uniform(-self.extent[1], self.extent[1], self.n_points),
+                radius * np.cos(theta)], 1).astype(np.float32)
+        else:
+            self.points = np.stack([
+                rng.uniform(-self.extent[0], self.extent[0], self.n_points),
+                rng.uniform(-self.extent[1], self.extent[1], self.n_points),
+                rng.uniform(*self.depth_range, self.n_points)],
+                1).astype(np.float32)
         self.descriptors = rng.integers(0, 2 ** 32, (self.n_points, 8),
                                         dtype=np.uint32)
         self.rng = rng
@@ -69,6 +82,47 @@ class SyntheticScene:
             yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
             x, y = xd, yd
         return np.stack([self.fx * x + self.cx, self.fy * y + self.cy], 1)
+
+    def observe(self, T_cw, n_slots=256, pix_noise=0.3, desc_bit_noise=6,
+                drop_frac=0.05):
+        """Oracle features of the points seen from pose T_cw [4, 4]: a dict
+        of xy [n_slots, 2], desc [n_slots, 8] uint32 (the point's
+        descriptor with `desc_bit_noise` bits flipped), octave (from the
+        depth), angle, valid and the point ids (-1 in padding), drawn from
+        the scene's rng in the JAX version's order, so the same calls give
+        the same bits."""
+        R, t = T_cw[:3, :3], T_cw[:3, 3]
+        pc = self.points @ R.T + t
+        z = pc[:, 2]
+        uv = np.where((z > 0.1)[:, None], self._project_px(pc), -1000.0)
+        vis = ((z > 0.5) & (uv[:, 0] >= 8) & (uv[:, 0] < self.width - 8)
+               & (uv[:, 1] >= 8) & (uv[:, 1] < self.height - 8))
+        vis &= self.rng.random(self.n_points) > drop_frac
+        ids = np.where(vis)[0]
+        self.rng.shuffle(ids)
+        ids = ids[:n_slots]
+        n = len(ids)
+        xy = uv[ids] + self.rng.normal(0, pix_noise, (n, 2))
+        desc = self.descriptors[ids].copy()
+        for _ in range(desc_bit_noise):
+            w = self.rng.integers(0, 8, n)
+            b = self.rng.integers(0, 32, n)
+            desc[np.arange(n), w] ^= (np.uint32(1) << b.astype(np.uint32))
+        octave = np.clip(
+            (3 - 3 * (z[ids] - self.depth_range[0])
+             / (self.depth_range[1] - self.depth_range[0])).astype(np.int32), 0, 7)
+        out = dict(xy=np.zeros((n_slots, 2), np.float32),
+                   desc=np.zeros((n_slots, 8), np.uint32),
+                   octave=np.zeros(n_slots, np.int32),
+                   angle=np.zeros(n_slots, np.float32),
+                   valid=np.zeros(n_slots, bool),
+                   ids=np.full(n_slots, -1, np.int64))
+        out["xy"][:n] = xy
+        out["desc"][:n] = desc
+        out["octave"][:n] = octave
+        out["valid"][:n] = True
+        out["ids"][:n] = ids
+        return out
 
     def _squares(self, T_cw, patch):
         """(index, depth, x0, y0, half size) of every square render_image
@@ -143,6 +197,26 @@ class SyntheticScene:
                       & (px[:, 1] >= y0) & (px[:, 1] < y0 + ext))
             depth[inside] = z               # nearer squares paint later
         return depth
+
+
+def ring_trajectory(n_frames, orbit_radius=2.0, total_angle=2.0 * np.pi,
+                    center=(0.0, 0.0, 0.0)):
+    """World->camera poses [n, 4, 4] f32 of a camera orbiting `center` at
+    `orbit_radius`, looking radially outward at a ring scene; frame i at
+    angle total_angle * i / n_frames, so a full orbit revisits the start."""
+    poses = []
+    c = np.asarray(center, np.float32)
+    for i in range(n_frames):
+        phi = total_angle * i / n_frames
+        d = np.array([np.sin(phi), 0.0, np.cos(phi)], np.float32)
+        x_cam = np.array([np.cos(phi), 0.0, -np.sin(phi)], np.float32)
+        y_cam = np.array([0.0, 1.0, 0.0], np.float32)
+        R_cw = np.stack([x_cam, y_cam, d], 1).T      # rows = camera axes
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = R_cw
+        T[:3, 3] = -R_cw @ (c + orbit_radius * d)
+        poses.append(T)
+    return np.stack(poses)
 
 
 def lateral_trajectory(n_frames, step=0.08, yaw_rate=0.0):

@@ -2,8 +2,11 @@
 
 XLA's CPU scatter applies the updates in order, so where several rows
 write one target the last row wins. The mapping code relies on that in
-three places (orb_slam_tpu/slam_map/observations.py:74-80,
-pipeline/mapping_kernels.py:193-197 and :287-288). `index_put_` with
+four places (orb_slam_tpu/slam_map/observations.py:74-80,
+pipeline/mapping_kernels.py:193-197, :287-288 and the loop fuse's
+:428-430); the merge remaps (:299-301, :438-443) and the loop closer's
+feature-to-point inversion (pipeline/loop_closing.py:141-147) take the
+same rule. `index_put_` with
 duplicate indices leaves the winner undefined on CUDA, so here the winner
 is found first: for every target the highest source row that writes it,
 by an integer `scatter_reduce("amax")`, which is deterministic on the card.

@@ -5,13 +5,15 @@ Port of orb_slam_tpu/pipeline/mapping_kernels.py:29-341 and :482-518:
 `triangulate_new_points`, `insert_new_points`, `fuse_into_keyframe`,
 `point_cull_stats` and `keyframe_redundancy` (LocalMapping.cc
 CreateNewMapPoints 205-371, SearchInNeighbors/Fuse 373-450,
-MapPointCulling 175-203, KeyFrameCulling 524-578). The loop closer's
-`fuse_points_into_keyframes` (:344-479) comes with loop closing.
+MapPointCulling 175-203, KeyFrameCulling 524-578), and the loop
+closer's `fuse_points_into_keyframes` (:344-479; SearchAndFuse,
+LoopClosing.cc:557-570).
 
-Two of JAX's scatters write duplicate targets and let the last row win
-(:193-197 and :287-288): a later row that writes a column back with its
-old value undoes an earlier row's binding. They go through
-`ops/scatter.set_last`, which reproduces that order on every device.
+Three of JAX's scatters write duplicate targets and let the last row win
+(:193-197, :287-288 and :428-430): a later row that writes a column back
+with its old value undoes an earlier row's binding. They go through
+`ops/scatter.set_last`, which reproduces that order on every device, as
+does the merge remap (:299-301, :438-443).
 """
 
 from __future__ import annotations
@@ -291,6 +293,88 @@ def fuse_into_keyframe(state: MapState, src_kf: int, dst_kf: int, K_mat,
     return (state.replace(kf_obs=kf_obs, pt_valid=pt_valid,
                           pt_visible=pt_visible, pt_found=pt_found),
             bind_free.sum(), has_existing.sum(), remap)
+
+
+def fuse_points_into_keyframes(state: MapState, pt_mask, dst_kfs, K_mat,
+                               width: int = 640, height: int = 480,
+                               scale_factor: float = 1.2, n_levels: int = 8,
+                               bounds=None):
+    """SearchAndFuse (LoopClosing.cc:557-570, ORBmatcher::Fuse(KF, Scw),
+    ORBmatcher.cc:1136-1265): project the point set `pt_mask` [P] (the
+    loop neighbourhood's points) into each keyframe of `dst_kfs` in order
+    (a sequence of slots; -1 is padding and skipped, as JAX's scan makes it
+    a no-op) and bind or merge: an unbound matched feature is bound to the
+    point; a feature bound to another point merges that point into the
+    loop point, which always wins (pRep->Replace(mvpLoopMapPoints[i])).
+    Returns (new_state, remap [P] int32), the merges of every destination
+    composed, -1 where a point's chain ends at a killed point, for the
+    host's forwarding table."""
+    P = state.pt_valid.shape[0]
+    dev = state.kf_obs.device
+    pids = torch.arange(P, device=dev)
+    mnx, mxx, mny, mxy = bounds if bounds is not None else (
+        0.0, float(width), 0.0, float(height))
+    log_sf = float(torch.log(torch.tensor(scale_factor, dtype=torch.float32)))
+    remap_acc = pids.to(torch.int32)
+    st = state
+    for dst in (int(d) for d in dst_kfs):
+        if dst < 0:
+            continue
+        T_dst = st.kf_pose[dst]
+        pc = st.pt_pos @ T_dst[:3, :3].T + T_dst[:3, 3]
+        z = pc[:, 2]
+        zs = torch.where(z.abs() < 1e-9, 1e-9, z)
+        u = K_mat[0, 0] * pc[:, 0] / zs + K_mat[0, 2]
+        v = K_mat[1, 1] * pc[:, 1] / zs + K_mat[1, 2]
+        proj = torch.stack([u, v], -1)
+        in_img = (z > 0) & (u >= mnx) & (u < mxx) & (v >= mny) & (v < mxy)
+        C = -T_dst[:3, :3].T @ T_dst[:3, 3]
+        rays = st.pt_pos - C
+        dist = torch.linalg.norm(rays, dim=-1)
+        # the bare scale band: Fuse(Scw) has no 0.8/1.2 slack
+        band_ok = (dist >= st.pt_min_dist) & (dist <= st.pt_max_dist)
+        view_ok = (rays * st.pt_normal).sum(-1) > 0.5 * dist
+        # points the destination already observes (ORBmatcher.cc:1163)
+        dst_obs = st.kf_obs[dst].long()
+        already = torch.zeros(P + 1, dtype=torch.bool, device=dev)
+        already[torch.where(dst_obs >= 0, dst_obs, P)] = True
+        candidate = (st.pt_valid & pt_mask & in_img & band_ok & view_ok
+                     & ~already[:P])
+
+        ratio = st.pt_max_dist.clamp(min=1e-9) / dist.clamp(min=1e-9)
+        pred = torch.ceil(torch.log(ratio.clamp(min=1e-9)) / log_sf)
+        pred = pred.to(torch.int64).clamp(0, n_levels - 1)
+        # radius 4.0 * scale (ORBmatcher.cc:1199)
+        r = 4.0 * _pow(scale_factor, pred.to(torch.float32))
+        d = proj[:, None, :] - st.kf_xy[dst][None, :, :]
+        gate = (d * d).sum(-1) <= (r * r)[:, None]
+        oct_dst = st.kf_octave[dst].long()
+        gate = gate & (oct_dst[None, :] >= pred[:, None] - 1) & (
+            oct_dst[None, :] <= pred[:, None] + 1)
+        best_idx, _, matched = match(
+            st.pt_desc, st.kf_desc[dst], allowed=gate, valid_a=candidate,
+            valid_b=st.kf_feat_valid[dst], max_dist=TH_LOW, nn_ratio=1.0,
+            unique=True)
+
+        row = st.kf_obs[dst]
+        dst_bound = row[best_idx].long()
+        has_existing = (matched & (dst_bound >= 0)
+                        & st.pt_valid[dst_bound.clamp(0, P - 1)]
+                        & (dst_bound != pids))
+        # bind free features; every row writes, the unbinding ones their
+        # old value, and the last write to a feature wins (:428-430)
+        bind_free = matched & (dst_bound < 0)
+        obs_all = st.kf_obs.clone()
+        obs_all[dst] = set_last(row, best_idx, torch.where(
+            bind_free, pids.to(torch.int32), row[best_idx]))
+        # merge duplicates: the loop point always wins
+        kf_obs, pt_valid, pt_visible, pt_found, step_fwd = _merge(
+            st, obs_all, has_existing, dst_bound, pids)
+        st = st.replace(kf_obs=kf_obs, pt_valid=pt_valid,
+                        pt_visible=pt_visible, pt_found=pt_found)
+        acc = remap_acc.long()
+        remap_acc = torch.where(acc >= 0, step_fwd[acc.clamp(0, P - 1)], -1)
+    return st, remap_acc
 
 
 def point_cull_stats(state: MapState, current_kf_counter):

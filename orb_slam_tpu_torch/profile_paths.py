@@ -9,7 +9,7 @@ The scene, map and settings are chip_smoke.py's (640x480, 1000 features,
 p_local 4096; the mapping path a SLAMSystem at the SlamConfig defaults,
 seeded with frames 0 and 1 as keyframes, moving MAPPING_STEP and turning
 MAPPING_YAW per frame). The paths run in turns, FAST, Harris, mapping,
-mapping, Harris, FAST. For a tracking path each turn prints the host-clock ms/frame of the
+mapping, Harris, FAST, then the loop turn. For a tracking path each turn prints the host-clock ms/frame of the
 extraction alone and of the whole path (a warmup window, then the median
 of 3 windows), then profiles one more window with torch.profiler: device
 kernel time per frame, kernel launches per frame, the device's busy share
@@ -37,12 +37,22 @@ also chip_smoke.py's phase 12: the system with relocalisation on and the
 shipped vocabulary, its frames, one run of the path with a record of
 every `_relocalize` call, and the stage clock that splits one call into
 BoW, candidate query and, per candidate, match, EPnP RANSAC,
-pose_optimize and the guided rounds.
+pose_optimize and the guided rounds. `loop_scene`, `loop_frames`,
+`loop_system`, `inject_drift`, `loop_path`, `loop_split`,
+`loop_snapshot`, `loop_restore` and `chain_pose_graph` are phases 14-15:
+the loop path (a sideways path out and back over a wide scene, the map
+drifted through a Sim3 on the way out), its record of every loop-closing
+pass and of the state before each accepted correction, the stage clock
+that splits a pass, and the PCG pose graph at K = 1024. The loop turn
+after the paths' turns (`profile_loop`) profiles the accepted pass per
+stage; `--spread` also runs the loop path per scene seed.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -54,6 +64,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from orb_slam_tpu_torch.convert import database_from_numpy, loop_closer_from_state
 from orb_slam_tpu_torch.frontend.orb_extractor import ORBConfig, ORBExtractor
 from orb_slam_tpu_torch.geometry.camera import CameraModel
 from orb_slam_tpu_torch.geometry.horn import horn_sim3
@@ -65,7 +76,8 @@ from orb_slam_tpu_torch.io.trajectory import ate_rmse, camera_centers_from_cw
 from orb_slam_tpu_torch.pipeline import system as slam
 from orb_slam_tpu_torch.pipeline.chunk import extract_track_chunk
 from orb_slam_tpu_torch.place.pretrained import load_pretrained
-from orb_slam_tpu_torch.slam_map.map_state import MapConfig
+from orb_slam_tpu_torch.slam_map.map_state import MapConfig, MapState
+from orb_slam_tpu_torch.slam_map.observations import refresh_point_stats
 from orb_slam_tpu_torch.solvers import local_ba as ba
 
 # the hand-written kernels of csrc/, whose time per launch is printed
@@ -270,6 +282,306 @@ def reloc_alignment(s: slam.SLAMSystem, gt):
     return rmse, align, length
 
 
+# the loop path: a wide version of the mapping scene (2400 points over
+# x in [-24, 24] m, the mapping scene's 800 over [-8, 8] at the same
+# density) and a sideways path LOOP_OUT frames out at MAPPING_STEP and the
+# same poses back, so the return revisits the start; just after the first
+# keyframe at or past frame LOOP_DRIFT_AT the recent half of the map goes
+# through the Sim3 LOOP_DRIFT (scale, translation), as
+# tests/test_loop_reloc_e2e.py:86-118 injects it, so the revisit must be
+# recognised by appearance and corrected by the loop closer. The loop
+# keyframe must lie among the frames before LOOP_CAND_BEFORE (the first
+# quarter of the path out).
+LOOP_OUT = 160
+LOOP_DRIFT_AT = 100
+LOOP_DRIFT = (1.15, (0.4, 0.0, 0.2))
+LOOP_CAND_BEFORE = LOOP_OUT // 4
+LOOP_SCENE_TEXT = (f"SyntheticScene(n_points=2400, extent=(24, 5, 4)), "
+                   f"lateral_trajectory({LOOP_OUT}, step={MAPPING_STEP}) out and the "
+                   f"same poses back")
+
+
+def loop_scene(seed: int = 0):
+    return SyntheticScene(n_points=2400, width=640, height=480,
+                          extent=(24.0, 5.0, 4.0), seed=seed)
+
+
+def loop_poses():
+    out = lateral_trajectory(LOOP_OUT, step=MAPPING_STEP, yaw_rate=0.0)
+    return np.concatenate([out, out[::-1][1:]])
+
+
+def loop_frames(scene, device):
+    """(ground-truth poses [n, 4, 4], frames [n, H, W] on `device`) of the
+    loop path."""
+    poses = loop_poses()
+    imgs = np.stack([scene.render_image(p) for p in poses])
+    return poses, torch.from_numpy(imgs).to(device)
+
+
+def loop_system(scene, device) -> slam.SLAMSystem:
+    """A SLAMSystem at the SlamConfig defaults (loop closing and
+    relocalisation on, ORBConfig(), MapConfig(), chunk 8) with the shipped
+    vocabulary, for the scene's camera, to start from raw frames."""
+    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy,
+                         width=scene.width, height=scene.height)
+    return slam.SLAMSystem(slam.SlamConfig(
+        camera=camera, vocabulary=load_pretrained()), device=device)
+
+
+def inject_drift(s: slam.SLAMSystem, scale: float, t):
+    """Remap the most recent half of the keyframes (by insertion order)
+    and the points they reference through x -> scale x + t, their poses
+    rewritten so that every projection stays the same, and move the
+    tracker into the drifted frame at the last keyframe's pose
+    (tests/test_loop_reloc_e2e.py:86-118):
+    a self-consistent recent section that disagrees with the old one.
+    Returns the drifted keyframe slots."""
+    m = s.map
+    slots = np.where(m.kf_valid.cpu().numpy())[0]
+    orders = s.kf_order[slots]
+    recent = set(int(k) for k in slots[orders > np.median(orders)])
+    poses = m.kf_pose.cpu().numpy().copy()
+    t = np.asarray(t, np.float32)
+    for k in recent:
+        poses[k][:3, 3] = scale * poses[k][:3, 3] - poses[k][:3, :3] @ t
+    pos = m.pt_pos.cpu().numpy().copy()
+    sel = m.pt_valid.cpu().numpy() & np.isin(m.pt_ref_kf.cpu().numpy(), list(recent))
+    pos[sel] = scale * pos[sel] + t
+    dev = s.device
+    s.map = refresh_point_stats(m.replace(kf_pose=torch.from_numpy(poses).to(dev),
+                                          pt_pos=torch.from_numpy(pos).to(dev)))
+    s.last_pose = poses[s.last_kf_slot].copy()
+    s.velocity = np.eye(4, dtype=np.float32)
+    return recent
+
+
+def drive_loop_frames(s, frames, inject, working=slam.WORKING):
+    """The loop path's frames through `s.process_batch` (a SLAMSystem of
+    the port or of the JAX package, `working` its WORKING state), with
+    `inject(s)` called once: just after the first keyframe at or past frame
+    LOOP_DRIFT_AT, where the tracker's pose is the keyframe's (at any other
+    frame the drifted tracker would start frames behind). Returns (the
+    poses out, the frame after which the drift went in, what `inject`
+    returned)."""
+    out = s.process_batch(frames[:LOOP_DRIFT_AT])
+    i = LOOP_DRIFT_AT
+    while i < len(frames) and not (s.state == working
+                                   and s.last_kf_frame == s.frame_id - 1):
+        out += s.process_batch(frames[i:i + 1])
+        i += 1
+    injected = inject(s)
+    out += s.process_batch(frames[i:])
+    return out, i - 1, injected
+
+
+def loop_snapshot(s: slam.SLAMSystem):
+    """A copy of everything LoopCloser.process reads and writes: the map,
+    the host lists and counters, the database rows, the loop closer's
+    consistent groups and counter."""
+    m = s.map
+    return dict(
+        cfg=s.cfg, vocab=s.vocab,
+        map={f.name: getattr(m, f.name).clone() for f in dataclasses.fields(m)},
+        lists={k: list(getattr(s, k)) for k in ("free_kf", "free_pt")},
+        arrays={k: getattr(s, k).copy() for k in ("kf_order", "pt_forward",
+                                                  "last_pose", "velocity")},
+        scalars={k: getattr(s, k) for k in ("kf_counter", "frame_id", "state",
+                                            "last_kf_frame", "last_kf_slot",
+                                            "ref_kf_tracked", "n_loops_closed")},
+        db=dict(bow_ids=s.db.bow_ids.cpu().numpy(), bow_w=s.db.bow_w.cpu().numpy(),
+                active=s.db.active.copy()),
+        loop=dict(consistent_groups=[(set(g), c) for g, c in
+                                     s.loop_closer.consistent_groups],
+                  last_loop_kf_counter=s.loop_closer.last_loop_kf_counter))
+
+
+def loop_restore(snap, device) -> slam.SLAMSystem:
+    """A SLAMSystem on `device` holding a `loop_snapshot`."""
+    s = slam.SLAMSystem(snap["cfg"], device=device)
+    s.map = MapState(**{k: v.to(device) for k, v in snap["map"].items()})
+    for k, v in snap["lists"].items():
+        setattr(s, k, list(v))
+    for k, v in snap["arrays"].items():
+        setattr(s, k, v.copy())
+    for k, v in snap["scalars"].items():
+        setattr(s, k, v)
+    s.vocab = snap["vocab"]
+    s.db = database_from_numpy(s.vocab, snap["db"], device=device)
+    s.loop_closer = loop_closer_from_state(s.db, s.cfg, **snap["loop"])
+    s._refresh_local_mask()
+    return s
+
+
+def loop_split(s: slam.SLAMSystem, slot: int, process=None):
+    """One `s.loop_closer.process(s, slot)` (or `process(s, slot)`, a
+    wrapped one) under a stage clock: (its result, {stage: [seconds of
+    each time it ran]}) over "loop detect" and, per candidate tried, "loop
+    match", "loop ransac", "loop guided", "loop optimize_sim3", "loop
+    project", then for an accepted loop "loop correct group", "loop fuse",
+    "loop graph", "loop essential graph" and "loop remap"."""
+    record = {}
+    timer = s._stage_timer
+    s._stage_timer = StageClock(record)
+    try:
+        ok = (process or s.loop_closer.process)(s, slot)
+    finally:
+        s._stage_timer = timer
+    return ok, record
+
+
+def loop_replay(closure, device, stage_timer=None, within=None):
+    """A `loop_path` closure's accepted loop-closing pass again on
+    `device`: the state restored from its snapshot, the minimal sets it
+    drew injected through `_sim3_sets`, `stage_timer` (if given) as the
+    system's stage clock and the pass run inside `within` (a context
+    manager, if given). Returns (the system after the pass, {"cand", "S12"}
+    that `correct` was called with, host-clock seconds of the pass, the
+    device synchronized at both ends)."""
+    s = loop_restore(closure["snap"], device)
+    queue = [idx.to(device) for idx in closure["sets"]]
+    s.loop_closer._sim3_sets = lambda valid: queue.pop(0)
+    hit = {}
+    correct = s.loop_closer.correct
+
+    def watched(system, new_kf, cand, S12):
+        hit.update(cand=int(cand), S12=[x.cpu() for x in S12])
+        return correct(system, new_kf, cand, S12)
+
+    s.loop_closer.correct = watched
+    if stage_timer is not None:
+        s._stage_timer = stage_timer
+    _sync()
+    t = time.perf_counter()
+    with within or contextlib.nullcontext():
+        s._run_loop_closing(closure["slot"])
+        _sync()
+    return s, hit, time.perf_counter() - t
+
+
+def loop_path(scene, device, record=True, system=None):
+    """The loop path on a fresh `loop_system` (or `system`): the frames
+    through process_batch at the config's chunk, with LOOP_DRIFT injected
+    as `drive_loop_frames` places it. With
+    `record`, every loop-closing pass runs through `loop_split` and is
+    kept (frame id, keyframe slot, split, the minimal sets it drew), and
+    the state before each accepted correction is saved (`loop_snapshot`)
+    with the keyframe ATE after a Sim3 alignment before and after it.
+    Returns a dict: the system, the ground-truth poses, the poses out,
+    the frame after which the drift went in and the keyframe ATE just
+    before it, the passes, the closures, the seconds of the whole run."""
+    poses, frames = loop_frames(scene, device)
+    s = system or loop_system(scene, device)
+    passes, closures = [], []
+    if record:
+        def run_loop_closing(slot, run=s._run_loop_closing):
+            lc = s.loop_closer
+            sets, correct = lc._sim3_sets, lc.correct
+            rec = dict(frame_id=s.frame_id - 1, slot=int(slot), sets=[])
+
+            def recorded_sets(valid):
+                idx = sets(valid)
+                rec["sets"].append(idx.clone())
+                return idx
+
+            def recorded_correct(system, new_kf, cand, S12):
+                snap = loop_snapshot(system)
+                before = keyframe_ate(system, poses)[0]
+                ok = correct(system, new_kf, cand, S12)
+                closures.append(dict(rec, snap=snap, S12=S12, ate_before=before,
+                                     ate_after=keyframe_ate(system, poses)[0],
+                                     **lc.last_correction))
+                return ok
+
+            lc._sim3_sets, lc.correct = recorded_sets, recorded_correct
+            try:
+                ok, split = loop_split(s, slot, lambda sys_, k: run(k) or True)
+            finally:
+                lc._sim3_sets, lc.correct = sets, correct
+            rec.update(split=split, closed=bool(closures) and
+                       closures[-1]["frame_id"] == rec["frame_id"])
+            passes.append(rec)
+
+        s._run_loop_closing = run_loop_closing
+
+    def inject(system):
+        before = keyframe_ate(system, poses)[0]
+        inject_drift(system, *LOOP_DRIFT)
+        return before
+
+    _sync()
+    t = time.perf_counter()
+    out, drift_after, ate_drift = drive_loop_frames(s, frames, inject)
+    _sync()
+    return dict(system=s, poses=poses, out=out, drift=(drift_after, ate_drift),
+                passes=passes, closures=closures,
+                seconds=time.perf_counter() - t, n_frames=len(frames))
+
+
+def loop_summary(r):
+    """One line on a `loop_path` result: the first frame tracked, the share
+    of later frames tracked, lost_count, n_loops_closed, each closure's
+    frame, keyframe pair (and the candidate's frame), merges, edges and
+    keyframe ATE before and after, the keyframe ATE at the end, ms/frame."""
+    s, out = r["system"], r["out"]
+    first = next((i for i, p in enumerate(out) if p is not None), None)
+    tracked = 0 if first is None else sum(p is not None for p in out[first:])
+    n_after = 0 if first is None else len(out) - first
+    fid = s.map.kf_frame_id.cpu().numpy()
+    cl = "; ".join(
+        f"closure at frame {c['frame_id']}: keyframe {c['new_kf']} (frame "
+        f"{fid[c['new_kf']]}) to {c['cand']} (frame {fid[c['cand']]}), group "
+        f"{c['group']}, {c['merged']} points merged, {c['edges']} edges, keyframe "
+        f"ATE {c['ate_before']:.5f} -> {c['ate_after']:.5f}"
+        for c in r["closures"]) or ("no closure" if not s.n_loops_closed else
+                                    "closures not recorded")
+    ate, scale, length, _ = keyframe_ate(s, r["poses"])
+    return (f"first frame tracked {first}, {tracked} of {n_after} after it tracked, "
+            f"lost_count {s.lost_count}, n_relocs {s.n_relocs}, n_loops_closed "
+            f"{s.n_loops_closed}; drift after frame {r['drift'][0]}, keyframe ATE "
+            f"before it {r['drift'][1]:.5f}; "
+            f"{cl}; keyframe ATE at the end {ate:.5f} ({ate / length:.5f} of the "
+            f"{length:.3f} m path, scale {scale:.4f}); {s.kf_counter} keyframes, "
+            f"{s.n_keyframes} live; {r['seconds'] * 1e3 / r['n_frames']:.3f} ms/frame")
+
+
+def chain_pose_graph(K: int, seed: int = 0):
+    """The arguments of optimize_essential_graph for a chain of K keyframe
+    Sim3s on a circle, drifted (rotation 0.01 rad, translation 0.02 and
+    scale 0.003 of random walk per keyframe), with the true relative
+    measurements of the chain and of loop edges from keyframe 0 to every
+    16th, the first keyframe fixed and the edges padded to a power of two
+    (the PCG cell of chip_smoke.py's phase 15 at K = 1024)."""
+    from scipy.spatial.transform import Rotation
+
+    from orb_slam_tpu_torch.solvers.essential_graph import relative_sim3_batch
+
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(0, 2 * np.pi, K, endpoint=False)
+    true_R = Rotation.from_rotvec(np.stack([0 * ang, ang, 0 * ang], 1)).as_matrix()
+    true_t = np.stack([4 * np.sin(ang), 0 * ang, 4 * np.cos(ang)], 1)
+    est_R = Rotation.from_rotvec(rng.normal(0, 0.01, (K, 3))).as_matrix() @ true_R
+    est_t = true_t + np.cumsum(rng.normal(0, 0.02, (K, 3)), 0)
+    est_s = np.exp(np.cumsum(rng.normal(0, 0.003, K)))
+    pairs = [(k, k + 1) for k in range(K - 1)] + [(0, k) for k in range(16, K, 16)]
+    E = 1
+    while E < len(pairs):
+        E *= 2
+    ei = np.zeros(E, np.int64)
+    ej = np.zeros(E, np.int64)
+    ev = np.zeros(E, bool)
+    ei[:len(pairs)], ej[:len(pairs)] = zip(*pairs)
+    ev[:len(pairs)] = True
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    ms, mR, mt = relative_sim3_batch(
+        torch.ones(E), f32(true_R[ei]), f32(true_t[ei]),
+        torch.ones(E), f32(true_R[ej]), f32(true_t[ej]))
+    fixed = torch.zeros(K, dtype=torch.bool)
+    fixed[0] = True
+    return [f32(est_s), f32(est_R), f32(est_t), torch.from_numpy(ei),
+            torch.from_numpy(ej), ms, mR, mt, torch.from_numpy(ev), fixed]
+
+
 def synthetic_tree(k: int, L: int, seed: int = 0):
     """A complete k-ary vocabulary tree of depth L with random node
     descriptors (scripts/vocab_scale_study.py::synth_full_tree, which
@@ -389,6 +701,9 @@ def mapping_spread(card, N, seeds=(0, 1, 2, 3), cpu_seeds=(0, 1), device=None):
         r = reloc_path(scene, card_dev, record=False)
         print(f"spread seed {seed} reloc path, card: {reloc_summary(r)}; {card}",
               flush=True)
+        r = loop_path(loop_scene(seed), card_dev, record=False)
+        print(f"spread seed {seed} loop path, card: {loop_summary(r)}; {card}",
+              flush=True)
 
 
 def reloc_summary(r):
@@ -412,9 +727,15 @@ def reloc_summary(r):
             f"{r['seconds'] * 1e3 / r['n_frames']:.3f} ms/frame")
 
 
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 class StageClock:
     """A SLAMSystem stage timer: host-clock seconds of each stage, the
-    device synchronized at both ends, appended to `record[name]`."""
+    device synchronized at both ends (where there is one), appended to
+    `record[name]`."""
 
     def __init__(self, record: dict):
         self.record = record
@@ -428,11 +749,11 @@ class _Stage:
         self.record, self.name = record, name
 
     def __enter__(self):
-        torch.cuda.synchronize()
+        _sync()
         self.t = time.perf_counter()
 
     def __exit__(self, *exc):
-        torch.cuda.synchronize()
+        _sync()
         self.record.setdefault(self.name, []).append(time.perf_counter() - self.t)
         return False
 
@@ -656,6 +977,38 @@ def profile_mapping(scene, poses, frames, N, card):
               f"integration; busy share {us * 1e-6 / max(h, 1e-9):.3f}")
 
 
+def profile_loop(card, dev):
+    """The loop turn: the loop path once with its passes recorded
+    (`loop_summary`), then its accepted pass again from the saved state
+    under torch.profiler with each stage labelled: per stage the host-clock
+    ms (the recorded run's stage clock), the device time, the device work
+    items (kernels, copies, fills) and the busy share."""
+    scene = loop_scene()
+    r = loop_path(scene, dev)
+    print(f"loop: {loop_summary(r)}; {card}", flush=True)
+    if not r["closures"]:
+        return
+    c = r["closures"][0]
+    split = next(p for p in r["passes"] if p["frame_id"] == c["frame_id"])["split"]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    loop_replay(c, dev, stage_timer=record_function, within=prof)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "loop.json")
+        prof.export_chrome_trace(trace)
+        work = device_work_by_label(trace)
+    host_s = sum(sum(v) for v in split.values())
+    dev_us = sum(us for us, _ in work.values())
+    print(f"loop: the accepted pass (frame {c['frame_id']}, keyframe {c['new_kf']} to "
+          f"{c['cand']}) from its saved state: host {host_s * 1e3:.3f} ms by the stage "
+          f"clock, device {dev_us / 1e3:.3f} ms, {sum(n for _, n in work.values())} work "
+          f"items, busy share {dev_us * 1e-6 / host_s:.3f}; {card}")
+    for name, times in split.items():
+        us, n = work.get(name, (0.0, 0))
+        h = sum(times)
+        print(f"    {name}: host {h * 1e3:.3f} ms ({len(times)} runs), device "
+              f"{us / 1e3:.3f} ms, {n} work items; busy share {us * 1e-6 / max(h, 1e-9):.3f}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=64)
@@ -698,6 +1051,7 @@ def main(argv=None):
             profile_mapping(scene, m_poses, m_frames, N, card)
         else:
             profile_tracking(name, *paths[name], scene, poses, frames, K, N, card)
+    profile_loop(card, dev)
     for P in (2048, 16384):
         split = ba_stage_split(dev, P)
         print(f"BA solver step at P={P}, O=32, Kl=80 (CUDA-event medians, "

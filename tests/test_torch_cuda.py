@@ -793,3 +793,175 @@ def test_epnp_ransac_on_card(dev):
     out = epnp.epnp_ransac(*same, idx=idx.to(dev))
     torch.cuda.synchronize()
     assert int(out[3]) >= 0
+
+
+# -- loop closing: the Sim3 solvers, the essential graph, the loop fuse and
+# one whole LoopCloser.process, card against CPU
+
+def sim3_rows(n=1000, seed=7, s_true=1.3):
+    """Matched camera-frame points of two keyframes related by a Sim3,
+    a fifth of the rows outliers, and their level variances."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    p1 = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                   rng.uniform(4, 8, n)], 1).astype(np.float32)
+    R = Rotation.from_rotvec([0.05, 0.3, -0.1]).as_matrix().astype(np.float32)
+    t = np.array([0.4, -0.2, 0.5], np.float32)
+    p2 = ((p1 - t) / s_true) @ R
+    proj = lambda p: (p[:, :2] / p[:, 2:3]) * 500.0 + [320, 240]
+    uv1 = (proj(p1) + rng.normal(0, 0.3, (n, 2))).astype(np.float32)
+    uv2 = (proj(p2) + rng.normal(0, 0.3, (n, 2))).astype(np.float32)
+    p2[: n // 5] += rng.uniform(1, 3, (n // 5, 3))
+    s2 = (1.2 ** (2 * rng.integers(0, 4, (2, n)))).astype(np.float32)
+    T = torch.from_numpy
+    return [T(p1), T(p2.astype(np.float32)), T(uv1), T(uv2),
+            T(rng.random(n) > 0.05), T(s2[0]), T(s2[1])]
+
+
+K500 = torch.tensor([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+
+
+def test_sim3_ransac_and_optimize_on_card_match_cpu(dev):
+    """sim3_ransac on the same 300 sets: s, R, t within 1e-4 and the
+    inlier flags equal on >= 99.5% of rows (Horn's eigh and the f32
+    reprojection gates round differently); optimize_sim3 from the CPU's
+    estimate, with and without fix_scale: within 1e-4, inliers within
+    0.5%."""
+    from orb_slam_tpu_torch.solvers import sim3
+    from orb_slam_tpu_torch.solvers.two_view import sample_minimal_sets
+
+    rows = sim3_rows()
+    idx = sample_minimal_sets(rows[4], 300, 3, generator=torch.Generator().manual_seed(3))
+    c = sim3.sim3_ransac(*rows, K500, idx=idx)
+    g = sim3.sim3_ransac(*(x.to(dev) for x in rows), K500.to(dev), idx=idx.to(dev))
+    for a, b in zip(g[:3], c[:3]):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4
+    assert float((g[3].cpu() == c[3]).float().mean()) >= 0.995 and int(c[4]) > 600
+    for fix in (False, True):
+        inv = [1.0 / rows[5], 1.0 / rows[6]]
+        args = list(c[:3]) + rows[:5] + inv + [K500]
+        oc = sim3.optimize_sim3(*args, fix_scale=fix)
+        og = sim3.optimize_sim3(*(x.to(dev) for x in args), fix_scale=fix)
+        for a, b in zip(og[:3], oc[:3]):
+            assert float((a.cpu() - b).abs().max()) <= 1e-4
+        assert abs(int(og[4]) - int(oc[4])) <= 0.005 * int(oc[4])
+
+
+@pytest.mark.parametrize("K,solver", [(256, "dense"), (1024, "cg")])
+def test_essential_graph_on_card_matches_cpu_and_repeats(dev, K, solver):
+    """Dense at 256 keyframe slots and PCG at 1024: s, R, t within 1e-4
+    plus 1e-4 of their size of the CPU's (100 f32 CG steps over 7168
+    unknowns summed in another order: t, of size ~4, moved by 1.39e-4 on
+    an H100), and two card runs bit-equal (the sorted scatter-adds)."""
+    from orb_slam_tpu_torch.profile_paths import chain_pose_graph
+    from orb_slam_tpu_torch.solvers.essential_graph import optimize_essential_graph
+
+    args = chain_pose_graph(K)
+    c = optimize_essential_graph(*args, iters=15, solver=solver)
+    on_dev = [x.to(dev) for x in args]
+    g1 = optimize_essential_graph(*on_dev, iters=15, solver=solver)
+    g2 = optimize_essential_graph(*on_dev, iters=15, solver=solver)
+    for a, b, d in zip(g1, c, g2):
+        assert torch.equal(a, d)
+        assert float(((a.cpu() - b).abs() - 1e-4 * b.abs()).max()) <= 1e-4
+
+
+def test_fuse_points_into_keyframes_on_card(dev, mapped):
+    """Every live point into every live keyframe: kf_obs, validity, the
+    counters and the remap equal on the card and the CPU."""
+    from orb_slam_tpu_torch.pipeline import mapping_kernels as mk
+
+    s, K = mapped
+    c, g = s.map, on(dev, s.map)
+    live = torch.nonzero(c.kf_valid)[:, 0].tolist()
+    kw = dict(width=320, height=240, n_levels=4)
+    mc, rc = mk.fuse_points_into_keyframes(c, c.pt_valid, live + [-1], K, **kw)
+    mg, rg = mk.fuse_points_into_keyframes(g, g.pt_valid, live + [-1], K.to(dev), **kw)
+    assert_states_equal(mg, mc)
+    assert torch.equal(rg.cpu(), rc)
+
+
+def yaw_pose(yaw, C):
+    """tests/test_loop_reloc_e2e.py::yaw_pose in numpy."""
+    R = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                  [-np.sin(yaw), 0, np.cos(yaw)]], np.float32)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = R
+    T[:3, 3] = -R @ np.asarray(C, np.float32)
+    return T
+
+
+@pytest.fixture(scope="module")
+def loop_state():
+    """The port on the CPU over the oracle ring of
+    tests/test_loop_reloc_e2e.py:118-151 (the drift injected at frame 60),
+    saved just before its first accepted loop-closing pass, with that
+    pass's minimal sets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from orb_slam_tpu_torch import profile_paths as pp
+    from orb_slam_tpu_torch.pipeline import system as slam
+
+    scene = SyntheticScene(n_points=1500, seed=5, extent=(0, 4.0, 0),
+                           depth_range=(7.0, 13.0), ring=True)
+    cfg = slam.SlamConfig(
+        camera=CameraModel(scene.fx, scene.fy, scene.cx, scene.cy,
+                           width=scene.width, height=scene.height),
+        map=MapConfig(max_keyframes=32, max_points=2048, n_features=250),
+        p_local=512, n_triangulation_neighbors=3, n_fuse_neighbors=2,
+        local_ba_window=6, orb=None, enable_relocalisation=False,
+        max_frames_between_kf=6, min_frames_between_kf=4, kf_tracked_ratio=1.5,
+        track_radius=25.0)
+    s = slam.SLAMSystem(cfg, device="cpu")
+    saved = {}
+    run = s._run_loop_closing
+
+    def watched(slot):
+        snap = pp.loop_snapshot(s)
+        sets, draw = [], s.loop_closer._sim3_sets
+
+        def recorded(valid):
+            sets.append(draw(valid))
+            return sets[-1]
+
+        s.loop_closer._sim3_sets = recorded
+        n = s.n_loops_closed
+        run(slot)
+        s.loop_closer._sim3_sets = draw
+        if s.n_loops_closed > n and not saved:
+            saved.update(snap=snap, sets=sets, slot=slot)
+
+    s._run_loop_closing = watched
+    poses = [yaw_pose(0.0, [-0.5 + 0.0625 * i, 0, 0]) for i in range(8)]
+    poses += [yaw_pose(2 * np.pi * i / 96, [3 * np.sin(2 * np.pi * i / 96), 0,
+                                            3 * (np.cos(2 * np.pi * i / 96) - 1)])
+              for i in range(116)]
+    for fi, T in enumerate(poses):
+        s.process(features=scene.observe(T, n_slots=250, pix_noise=0.4))
+        if fi == 60:
+            pp.inject_drift(s, 1.15, [0.4, 0.0, 0.2])
+        if saved:
+            break
+    assert saved, "no loop closed on the CPU"
+    return saved
+
+
+def test_loop_closer_process_on_card_matches_cpu(dev, loop_state):
+    """One LoopCloser pass from the saved state on the card and the CPU
+    with the same sets: the same decision and candidate, S12 within 1e-4,
+    the corrected keyframe poses within 1e-3, loop_edges equal."""
+    from orb_slam_tpu_torch import profile_paths as pp
+
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        s, hit, _ = pp.loop_replay(loop_state, d)
+        res[d.type] = (s.n_loops_closed, hit, s.map.kf_pose.cpu(),
+                       s.map.loop_edges.cpu(), s.map.kf_valid.cpu())
+    g, c = res["cuda"], res["cpu"]
+    assert g[0] == c[0] and g[1]["cand"] == c[1]["cand"]
+    for a, b in zip(g[1]["S12"], c[1]["S12"]):
+        assert float((a - b).abs().max()) <= 1e-4
+    live = c[4]
+    assert float((g[2][live] - c[2][live]).abs().max()) <= 1e-3
+    assert torch.equal(g[3], c[3])
