@@ -6,7 +6,8 @@ frames: the FAST extract-and-track main path, the Harris
 cell-fused detector; then the mapping path from a seeded map and the
 whole system from raw frames through its own two-view initialisation,
 that system lost in a blackout and relocalised against its keyframe
-database, and that system closing a drifted loop.
+database, that system closing a drifted loop, the same frames with the
+mapper and loop threads live, and the command line.
 
     python3 chip_smoke.py
 
@@ -155,12 +156,43 @@ Phases (any failure raises and the exit code is non-zero):
      >= 99.9%, remapped points within 2), optimize_essential_graph dense
      at K=256 on the pass's graph and PCG at K=1024 on
      profile_paths.chain_pose_graph (within MAX_LOOP_DGRAPH).
+ 16. async path (profile_paths.async_path): the loop path's 319 frames
+     through AsyncSLAMSystem at the same configuration, the mapper and
+     loop threads live, the frames handed over as a camera sends them,
+     one every profile_paths.ASYNC_FRAME_PERIOD seconds
+     (profile_paths.PacedFeed: every frame that has arrived, at most a
+     chunk of 8 per call, as the reference's examples pace a sequence);
+     the drift goes in inside an exclusive window (finish, request_stop,
+     inject_drift, release) that the camera waits out. Checks: the final
+     finish() drains within its timeout and neither thread stored an
+     error, WORKING within 10 frames, >= 90% of later frames tracked,
+     phase 14's loop checks (a closure onto the first quarter, the
+     keyframe ATE just after it and at the end; ASYNC_LOOP_GATED), K1
+     once per extraction, K2 at least once per tracked frame, all outputs
+     finite. Prints the tracking thread's ms/frame inside process_batch
+     beside phase 14's sequential timing run and their ratio, with the
+     final drain, keyframes and loops closed against phase 14's, the
+     mapper's integrations, and the keyframe ATE before and after each
+     correction and at the end. Then the session: save_session of the
+     async system, load_session into a fresh SLAMSystem on the card with
+     relocalisation off, every map and database array equal, and the
+     path's last 8 frames through the loaded system again at chunk 8,
+     last first from the saved final pose, each tracked with >= 30
+     inliers and none relocalised;
+ 17. the CLI: 64 frames of the mapping scene and trajectory written as
+     binary PGM, a settings file (FAST, 1000 features, 8 levels) and the
+     ground truth as a TUM file in a temporary directory; `cli.main(["run",
+     settings, frames, "--chunk", "8", "--async", "--out", traj])` on the
+     card, then `cli.main(["eval", traj, gt])`. Checks: >= 6 keyframes in
+     the trajectory, the eval's ate_rmse <= 2% of the ground-truth path
+     length, K1 once per extraction. Prints the `[final]` line (its fps).
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last three lines are the kernel table as JSON (launches from
 the path that runs the kernel: K1 and K2 the FAST path, K3 the Harris
 path, K4 the cell-fused run; `init_path_launches` those of phase 10,
 `reloc_path_launches` those of phase 12's checked run,
-`loop_path_launches` those of phase 14's;
+`loop_path_launches` those of phase 14's, `async_path_launches` those
+of phase 16's, `cli_path_launches` those of phase 17's `run`;
 `minmax_floor_ms` for the stencil kernels),
 the card's name and power limit, and
 {"ok": true, "device": ...}.
@@ -168,6 +200,7 @@ the card's name and power limit, and
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -259,6 +292,10 @@ MAX_LOOP_AFTER_VS_JAX = 1.1
 MAX_LOOP_ATE_VS_JAX = 1.5
 MAX_LOOP_DS12 = 1e-4
 MAX_LOOP_DGRAPH = 3e-4
+# the CLI phase (phase 17): frames of the mapping trajectory
+# phase 16 holds the async path to phase 14's loop checks
+ASYNC_LOOP_GATED = True
+CLI_FRAMES = 64
 
 
 def device_line() -> str:
@@ -696,11 +733,12 @@ def mapping_path(dev, card, kernels, scene):
     """Phase 9 (module docstring). Returns the K1/K2 launch counts."""
     from orb_slam_tpu_torch.io.synthetic import lateral_trajectory
     from orb_slam_tpu_torch.profile_paths import (
-        MAPPING_STEP, MAPPING_YAW, StageClock, ba_stage_split,
+        MAPPING_STEP, MAPPING_YAW, ba_stage_split,
         keyframe_ate, keyframe_center_errors, mapping_system,
     )
     from orb_slam_tpu_torch.slam_map.observations import OBS_CAP
     from orb_slam_tpu_torch.solvers.local_ba import bundle_adjust
+    from orb_slam_tpu_torch.utils.timing import StageTimer
 
     poses = lateral_trajectory(N_FRAMES + 2, step=MAPPING_STEP, yaw_rate=MAPPING_YAW)
     frames = torch.from_numpy(np.stack([scene.render_image(p) for p in poses])).to(dev)
@@ -735,7 +773,7 @@ def mapping_path(dev, card, kernels, scene):
 
     s._need_new_keyframe, s._integrate_keyframe = recorded_need, recorded_integrate
     stage_s = {}
-    s._stage_timer = StageClock(stage_s)
+    s._stage_timer = StageTimer(times=stage_s)
     torch.cuda.synchronize()
     for k in kernels.values():
         k.launches = 0
@@ -872,6 +910,18 @@ def mapping_path(dev, card, kernels, scene):
     return launches
 
 
+def counting_extractions(extractors):
+    """Wrap each extractor's forward to count its calls; returns the count
+    as a one-item list."""
+    count = [0]
+    for ex in extractors:
+        def counted(img, forward=ex.forward):
+            count[0] += 1
+            return forward(img)
+        ex.forward = counted
+    return count
+
+
 def init_path(dev, card, kernels, scene):
     """Phase 10 (module docstring). Returns (K1..K4 launches of the run,
     the inputs of the successful initialize_two_view call)."""
@@ -887,12 +937,7 @@ def init_path(dev, card, kernels, scene):
     s = init_system(scene, dev)
     # count the extractions (K1 runs once in each) and record the
     # two-view calls and the initialisation
-    extractions = [0]
-    for ex in (s.extractor, s.extractor_init):
-        def counted(img, forward=ex.forward):
-            extractions[0] += 1
-            return forward(img)
-        ex.forward = counted
+    extractions = counting_extractions((s.extractor, s.extractor_init))
     calls, init = [], {}
     two_view = slam.initialize_two_view
 
@@ -1075,14 +1120,10 @@ def reloc_phase(dev, card, kernels, scene):
     its saved state and its last EPnP inputs)."""
     from orb_slam_tpu_torch import profile_paths as pp
     from orb_slam_tpu_torch.pipeline import system as slam
+    from orb_slam_tpu_torch.utils.timing import StageTimer
 
     s = pp.reloc_system(scene, dev)
-    extractions = [0]
-    for ex in (s.extractor, s.extractor_init):
-        def counted(img, forward=ex.forward):
-            extractions[0] += 1
-            return forward(img)
-        ex.forward = counted
+    extractions = counting_extractions((s.extractor, s.extractor_init))
     # per _relocalize call: K2 launches inside it and the state before it;
     # every epnp_ransac call's inputs
     per_call, epnp_calls = [], []
@@ -1107,7 +1148,7 @@ def reloc_phase(dev, card, kernels, scene):
 
     s._relocalize = watched
     stages = {}
-    s._stage_timer = pp.StageClock(stages)
+    s._stage_timer = StageTimer(times=stages)
     slam.epnp_ransac = recorded_ransac
     torch.cuda.synchronize()
     for k in kernels.values():
@@ -1384,17 +1425,15 @@ def loop_ate_failures(before, after, end=None):
 
 def loop_phase(dev, card, kernels):
     """Phase 14 (module docstring). Returns (K1..K4 launches of the checked
-    run, the accepted closure's record, the inputs of its device calls)."""
+    run, the accepted closure's record, the inputs of its device calls,
+    the sequential readings phase 16 compares with: ms/frame of the timing
+    run, keyframes, loops closed, keyframe ATE before and after the
+    correction and at the end)."""
     from orb_slam_tpu_torch import profile_paths as pp
 
     scene = pp.loop_scene()
     s = pp.loop_system(scene, dev)
-    extractions = [0]
-    for ex in (s.extractor, s.extractor_init):
-        def counted(img, forward=ex.forward):
-            extractions[0] += 1
-            return forward(img)
-        ex.forward = counted
+    extractions = counting_extractions((s.extractor, s.extractor_init))
     torch.cuda.synchronize()
     for k in kernels.values():
         k.launches = 0
@@ -1486,10 +1525,13 @@ def loop_phase(dev, card, kernels):
 
     # the path again without recording or stage clock, for ms/frame
     t = pp.loop_path(scene, dev, record=False)
-    print(f"loop path timing: {t['seconds'] * 1e3 / t['n_frames']:.3f} ms/frame "
+    seq_ms = t["seconds"] * 1e3 / t["n_frames"]
+    print(f"loop path timing: {seq_ms:.3f} ms/frame "
           f"without the stage clock; n_loops_closed {t['system'].n_loops_closed}; "
           f"{card}")
-    return launches, c, record
+    seq = dict(ms=seq_ms, keyframes=s.kf_counter, loops=s.n_loops_closed, ate=ate,
+               ate_before=c["ate_before"], ate_after=c["ate_after"])
+    return launches, c, record, seq
 
 
 def loop_timings(dev, card, record):
@@ -1567,6 +1609,208 @@ def loop_timings(dev, card, record):
         print(f"{line}; CUDA events, medians; {card}")
     if bad:
         raise AssertionError(f"loop timings: the card and the CPU disagree: {bad}")
+
+
+def async_phase(dev, card, kernels, seq):
+    """Phase 16 (module docstring). Returns the K1..K4 launches of the run."""
+    from orb_slam_tpu_torch import profile_paths as pp
+    from orb_slam_tpu_torch.pipeline import system as slam
+    from orb_slam_tpu_torch.slam_map.serialization import load_session, save_session
+
+    scene = pp.loop_scene()
+    s = pp.async_system(scene, dev)
+    try:
+        extractions = counting_extractions((s.extractor, s.extractor_init))
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        r = pp.async_path(scene, dev, system=s)
+        launches = {name: k.launches for name, k in kernels.items()}
+        if s._mapper_error is not None or s._loop_error is not None:
+            raise AssertionError(f"async path: thread errors {s._mapper_error!r}, "
+                                 f"{s._loop_error!r}")
+        out, poses, closures = r["out"], r["poses"], r["closures"]
+        first = next((i for i, p in enumerate(out) if p is not None), len(out))
+        tracked = sum(p is not None for p in out[first:])
+        n_after = len(out) - first
+        ate = pp.keyframe_ate(s, poses)[0]
+        m = s.map
+        finite = (all(np.isfinite(p).all() for p in out if p is not None)
+                  and bool(torch.isfinite(m.kf_pose[m.kf_valid]).all())
+                  and bool(torch.isfinite(m.pt_pos[m.pt_valid]).all()))
+        track_ms = r["track_s"] * 1e3 / r["n_frames"]
+        drain_ms = (r["track_s"] + r["drain_s"]) * 1e3 / r["n_frames"]
+        print(f"async path: {len(out)} raw frames 640x480, AsyncSLAMSystem at the "
+              f"SlamConfig defaults (mapper and loop threads live, the shipped "
+              f"vocabulary, at most chunk {s.cfg.track_chunk_size} per call), fed as a "
+              f"camera sends them (profile_paths.PacedFeed), the drift injected in a "
+              f"finish / request_stop / inject / release window: "
+              f"{pp.async_summary(r)}; {extractions[0]} extractions; launches "
+              f"{launches}; {card}")
+        print(f"async vs sequential on the loop path's frames: tracking thread "
+              f"{track_ms:.3f} ms/frame inside process_batch, {drain_ms:.3f} with the "
+              f"final drain; phase 14's sequential timing run {seq['ms']:.3f} ms/frame; "
+              f"ratio {track_ms / seq['ms']:.3f} (with the drain "
+              f"{drain_ms / seq['ms']:.3f}); keyframes {s.kf_counter} vs "
+              f"{seq['keyframes']}, loops closed {s.n_loops_closed} vs {seq['loops']}; "
+              f"keyframe ATE at the end {ate:.5f} vs {seq['ate']:.5f} (phase 14: "
+              f"{seq['ate_before']:.5f} -> {seq['ate_after']:.5f} at its correction); "
+              f"{card}")
+        for c in closures:
+            print(f"async loop closure: keyframe ATE {c['ate_before']:.5f} just before, "
+                  f"{c['ate_after']:.5f} just after ({c['ate_after'] / c['ate_before']:.3f}"
+                  f" of it), {ate:.5f} at the end ({ate / c['ate_before']:.3f})")
+        if first >= INIT_WITHIN:
+            raise AssertionError(f"async path: WORKING at frame {first}")
+        if tracked < MIN_TRACKED_SHARE * n_after:
+            raise AssertionError(f"async path: {tracked} of {n_after} frames tracked")
+        if ASYNC_LOOP_GATED:
+            c = closures[0] if closures else None
+            fid = m.kf_frame_id.cpu().numpy()
+            if s.n_loops_closed < 1 or c is None:
+                raise AssertionError("async path: no loop closed")
+            if not fid[c["cand"]] < pp.LOOP_CAND_BEFORE:
+                raise AssertionError(f"async path: the loop keyframe's frame "
+                                     f"{fid[c['cand']]} is not among the first "
+                                     f"{pp.LOOP_CAND_BEFORE}")
+            failed = loop_ate_failures(c["ate_before"], c["ate_after"], ate)
+            if failed:
+                raise AssertionError(f"async path: keyframe ATE {failed}")
+        if not finite:
+            raise AssertionError("async path: non-finite output")
+        if (launches["K1"] != extractions[0] or launches["K2"] < tracked
+                or launches["K3"] or launches["K4"]):
+            raise AssertionError(f"async path: launches {launches}, {extractions[0]} "
+                                 f"extractions, {tracked} frames tracked")
+
+        # the session on the card: saved from the async system, loaded into
+        # a fresh SLAMSystem with relocalisation off, the arrays equal, and
+        # the path's last 8 frames through the loaded system again at chunk
+        # 8. The loaded system resumes at the saved final pose, so the
+        # frames run last first, each one step from the one before (frame
+        # 311 is 7 steps, 0.56 m, from it), the motion model reset (the
+        # path turns back). Each must be tracked with >= 30 inliers, read
+        # at the keyframe decision every tracked frame reaches.
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "session.npz")
+            t = time.perf_counter()
+            save_session(path, s)
+            t_save = time.perf_counter() - t
+            size = os.path.getsize(path)
+            s2 = slam.SLAMSystem(dataclasses.replace(s.cfg, enable_relocalisation=False),
+                                 device=dev)
+            t = time.perf_counter()
+            load_session(path, s2)
+            t_load = time.perf_counter() - t
+        differ = [f.name for f in dataclasses.fields(m)
+                  if not torch.equal(getattr(m, f.name), getattr(s2.map, f.name))]
+        differ += [k for k in ("bow_ids", "bow_w")
+                   if not torch.equal(getattr(s.db, k), getattr(s2.db, k))]
+        if not np.array_equal(s.db.active, s2.db.active):
+            differ.append("active")
+        s2.velocity = np.eye(4, dtype=np.float32)
+        inliers, ladder = [], [0]
+        need, track = s2._need_new_keyframe, s2._track
+
+        def recorded_need(frame_id, n_inliers):
+            inliers.append(int(n_inliers))
+            return need(frame_id, n_inliers)
+
+        def counted_track(frame):
+            ladder[0] += 1
+            return track(frame)
+
+        s2._need_new_keyframe, s2._track = recorded_need, counted_track
+        kf0, relocs0, lost0 = s2.kf_counter, s2.n_relocs, s2.lost_count
+        again = s2.process_batch(list(r["frames"][-8:].flip(0)), chunk_size=8)
+        print(f"session: saved in {t_save:.2f} s ({size / 2**20:.1f} MiB), loaded into a "
+              f"fresh SLAMSystem on the card in {t_load:.2f} s; arrays that differ: "
+              f"{differ or 'none'}; the path's last 8 frames through the loaded system "
+              f"at chunk 8, last first, relocalisation off: "
+              f"{sum(p is not None for p in again)} of 8 tracked, inliers {inliers}, "
+              f"{ladder[0]} through the ladder, {s2.n_relocs - relocs0} relocalisations, "
+              f"{s2.kf_counter - kf0} keyframes inserted; {card}")
+        if differ:
+            raise AssertionError(f"session: {differ} differ after the round trip")
+        if (any(p is None or not np.isfinite(p).all() for p in again)
+                or len(inliers) != 8 or min(inliers) < MIN_INLIERS
+                or s2.n_relocs != relocs0 or s2.lost_count != lost0):
+            raise AssertionError(f"session: the last 8 frames after the reload: "
+                                 f"inliers {inliers}")
+    finally:
+        s.close()
+    return launches
+
+
+def cli_phase(dev, card, kernels):
+    """Phase 17 (module docstring). Returns the K1..K4 launches of `run`."""
+    from orb_slam_tpu_torch import cli
+    from orb_slam_tpu_torch.frontend.orb_extractor import ORBConfig, ORBExtractor
+    from orb_slam_tpu_torch.geometry.camera import CameraModel
+    from orb_slam_tpu_torch.geometry.so3 import rot_to_quat
+    from orb_slam_tpu_torch.io.dataset import write_pgm
+    from orb_slam_tpu_torch.io.settings import settings_text
+    from orb_slam_tpu_torch.io.synthetic import SyntheticScene, lateral_trajectory
+    from orb_slam_tpu_torch.io.trajectory import camera_centers_from_cw, write_tum
+    from orb_slam_tpu_torch.profile_paths import MAPPING_STEP, MAPPING_YAW
+
+    W, H = 640, 480
+    scene = SyntheticScene(n_points=800, width=W, height=H)
+    poses = lateral_trajectory(CLI_FRAMES, step=MAPPING_STEP, yaw_rate=MAPPING_YAW)
+    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy, width=W, height=H)
+    centers = camera_centers_from_cw(np.asarray(poses, np.float64))
+    length = float(np.linalg.norm(np.diff(centers, axis=0), axis=1).sum())
+    forward = ORBExtractor.forward
+    extractions = [0]
+
+    def counted(self, img):
+        extractions[0] += 1
+        return forward(self, img)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        frames = os.path.join(tmp, "frames")
+        os.makedirs(frames)
+        for i, p in enumerate(poses):
+            write_pgm(os.path.join(frames, f"{i:06d}.pgm"), scene.render_image(p))
+        settings = os.path.join(tmp, "settings.yaml")
+        with open(settings, "w") as f:
+            f.write(settings_text(camera, ORBConfig(n_features=1000, n_levels=8)))
+        gt = os.path.join(tmp, "gt.txt")
+        write_tum(gt, [(i, -T[:3, :3].T @ T[:3, 3],
+                        rot_to_quat(torch.from_numpy(T[:3, :3].T.copy())).numpy())
+                       for i, T in enumerate(np.asarray(poses, np.float64))])
+        traj = os.path.join(tmp, "traj.txt")
+        err, out = io.StringIO(), io.StringIO()
+        ORBExtractor.forward = counted
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        try:
+            with contextlib.redirect_stderr(err):
+                cli.main(["run", settings, frames, "--chunk", "8", "--async",
+                          "--out", traj])
+        finally:
+            ORBExtractor.forward = forward
+            torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items()}
+        rows = np.loadtxt(traj, ndmin=2)
+        with contextlib.redirect_stdout(out):
+            cli.main(["eval", traj, gt])
+    final = next((l for l in err.getvalue().splitlines() if l.startswith("[final]")), "")
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"CLI: run {CLI_FRAMES} PGM frames 640x480 (the mapping scene and "
+          f"trajectory), FAST, 1000 features, 8 levels, --chunk 8 --async: {final!r}; "
+          f"{len(rows)} keyframes in the trajectory; eval {result}, ATE "
+          f"{result['ate_rmse'] / length:.5f} of the {length:.3f} m path; "
+          f"{extractions[0]} extractions; launches {launches}; {card}")
+    if len(rows) < MIN_KEYFRAMES:
+        raise AssertionError(f"CLI: {len(rows)} keyframes in the trajectory")
+    if not result["ate_rmse"] <= MAX_ATE_SHARE * length:
+        raise AssertionError(f"CLI: ATE {result['ate_rmse']:.5f} over "
+                             f"{MAX_ATE_SHARE} of the {length:.3f} m path")
+    if launches["K1"] != extractions[0] or extractions[0] < CLI_FRAMES:
+        raise AssertionError(f"CLI: launches {launches}, {extractions[0]} extractions")
+    return launches
 
 
 def main():
@@ -1807,8 +2051,10 @@ def main():
     reloc_launches, reloc_sys, ok_call, epnp_inputs = reloc_phase(dev, card, kernels,
                                                                   scene)
     place_phases(dev, card, reloc_sys, ok_call, epnp_inputs)
-    loop_launches, _, loop_record = loop_phase(dev, card, kernels)
+    loop_launches, _, loop_record, loop_seq = loop_phase(dev, card, kernels)
     loop_timings(dev, card, loop_record)
+    async_launches = async_phase(dev, card, kernels, loop_seq)
+    cli_launches = cli_phase(dev, card, kernels)
 
     launches = {"K1": fast_launches["K1"], "K2": fast_launches["K2"],
                 "K3": harris_launches["K3"], "K4": cell_launches["K4"]}
@@ -1833,6 +2079,8 @@ def main():
          "init_path_launches": init_launches[k],
          "reloc_path_launches": reloc_launches[k],
          "loop_path_launches": loop_launches[k],
+         "async_path_launches": async_launches[k],
+         "cli_path_launches": cli_launches[k],
          **({"chain_floor_ms": k2_floor_ms} if k == "K2" else {})}
         for k, (name, source, replaces) in meta.items()]}))
     print(f"device: {card}")

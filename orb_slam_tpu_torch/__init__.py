@@ -12,7 +12,9 @@ detector, and the settings file that selects them; local mapping; the
 two-view initialisation with the tracking recovery ladder, so that
 `pipeline/system.py::SLAMSystem` runs from raw frames; and place
 recognition with relocalisation, so that a lost frame is recovered
-against the keyframe database.
+against the keyframe database; loop closing; and the product around the
+system: the three-thread AsyncSLAMSystem, sessions, datasets, viz and the
+command line.
 
 Layout (each subpackage mirrors its JAX counterpart):
   ops/        FAST, Harris, pyramid, selection, descriptors, matching;
@@ -21,7 +23,8 @@ Layout (each subpackage mirrors its JAX counterpart):
   frontend/   ORBExtractor (an nn.Module)
   geometry/   SO3/SE3 maps, quaternions, camera model, triangulation,
               Horn's Sim3
-  slam_map/   MapState (a dataclass of tensors), covisibility, observations
+  slam_map/   MapState (a dataclass of tensors), covisibility, observations,
+              sessions (serialization.py, the JAX package's file format)
   solvers/    pose-only Gauss-Newton (kernel K2), local BA, two-view
               initialisation, EPnP and its batched RANSAC
   place/      vocabulary tree (transform, BoW vectors, L1 score, training,
@@ -29,8 +32,13 @@ Layout (each subpackage mirrors its JAX counterpart):
               keyframe database and its candidate queries
   native/     the host C++ DBoW2 text parser, built with g++ at first use
   pipeline/   per-frame tracking, the fused extract+track chunk, mapping
-              kernels, the SLAMSystem
-  io/         numpy-only synthetic scene, settings files, trajectories
+              kernels, loop closing, the SLAMSystem and the threaded
+              AsyncSLAMSystem (async_system.py)
+  io/         numpy-only synthetic scene, settings files, trajectories,
+              image-directory and video datasets, the frame overlay and
+              map plot
+  utils/      the SLAM_DEBUG event log, the stage timer, profiler traces
+  cli.py      `run` and `eval` (python -m orb_slam_tpu_torch.cli)
   csrc/       the hand-written CUDA kernels, built by _build.py
   device.py   the default device of the entry points: the CUDA card
 

@@ -10,8 +10,11 @@ coordinates. The detection is kernel K1 (score, NMS and border mask) for
 the FAST score (nScoreType=1), and kernel K3 (score and NMS) followed by
 the Harris ranking for nScoreType=0 (`score_harris`), the XLA detector
 the JAX extractor runs for Harris on every backend. The stacked
-descriptor variants without the LUT (`desc_lut_bins=0`) or with
-`patch_method="rowgather"` are not ported.
+descriptors route as JAX's (orb_extractor.py:235-250): the LUT with
+`patch_method="onehot"` takes the one-pass `angles_desc_fused`; any other
+setting takes `ic_angles_batch` on the canvas and, on the canvas blurred
+by `gaussian_blur_stack` and rounded, `rbrief_batch_lut` (the LUT) or
+`rbrief_batch` (`desc_lut_bins=0`, continuous rotation).
 
 Per level (`stacked=False`, the cv2-exact oracle of the JAX tests): each
 level resized from the previous one, FAST (or Harris) detection on it,
@@ -27,7 +30,8 @@ import torch
 
 from orb_slam_tpu_torch.device import require_device
 from orb_slam_tpu_torch.ops.descriptor_stack import (
-    angles_desc_fused, lut_sample_indices,
+    angles_desc_fused, gaussian_blur_stack, ic_angles_batch,
+    lut_sample_indices, rbrief_batch, rbrief_batch_lut,
 )
 from orb_slam_tpu_torch.ops.fast import detect_fast_keypoints
 from orb_slam_tpu_torch.ops.fast_stack import (
@@ -102,18 +106,14 @@ class ORBExtractor(torch.nn.Module):
     stacked=True (default): all levels as one [L, H, W] canvas (the main
     path); stacked=False: the per-level pipeline.
 
-    Buffers: the pyramid matrices (Rp, Cp), the LUT sample indices, the
-    moment weights, the rBRIEF pattern and the per-level tables of the
-    keypoint selector, so a call copies nothing from the host."""
+    Buffers: the pyramid matrices (Rp, Cp), the LUT sample indices (or
+    the rBRIEF pattern without the LUT), the moment weights and the
+    per-level tables of the keypoint selector, so a call copies nothing
+    from the host."""
 
     def __init__(self, config: ORBConfig = ORBConfig(), height: int = 480,
                  width: int = 640, stacked: bool = True, device="cuda"):
         super().__init__()
-        if stacked and (not config.desc_lut_bins
-                        or config.patch_method != "onehot"):
-            raise NotImplementedError(
-                "the stacked extractor is ported with the LUT descriptor "
-                "and one-pass patches only")
         device = require_device(device)
         self.config = config
         self.stacked = stacked
@@ -130,14 +130,15 @@ class ORBExtractor(torch.nn.Module):
                                       config.scale_factor)
             self.register_buffer("Rp", torch.from_numpy(Rp))
             self.register_buffer("Cp", torch.from_numpy(Cp))
-            self.register_buffer("lut_idx", torch.from_numpy(
-                lut_sample_indices(config.desc_lut_bins)))
+            if config.desc_lut_bins:
+                self.register_buffer("lut_idx", torch.from_numpy(
+                    lut_sample_indices(config.desc_lut_bins)))
             self.register_buffer("level_hw", torch.tensor(self.shapes))
             self.selector = KeypointSelector(
                 self.shapes, self.quotas, th_ini=config.fast_th_ini,
                 th_min=config.fast_th_min, border=config.edge_threshold,
                 device=device)
-        else:
+        if not (stacked and config.desc_lut_bins):
             self.register_buffer("pat", torch.from_numpy(_PAT))
         self.to(device)
 
@@ -157,8 +158,18 @@ def _extract_stacked(ex: ORBExtractor, img: torch.Tensor) -> ORBFeatures:
                                                         use_harris=True)
     else:
         xy_l, score_l, valid_l = detect_keypoints_packed(stack, ex.selector)
-    angle_l, desc_l = angles_desc_fused(stack, xy_l, ex.level_hw, ex.lut_idx,
-                                        ex.wx, ex.wy, quotas=ex.quotas)
+    cfg = ex.config
+    if cfg.desc_lut_bins and cfg.patch_method == "onehot":
+        angle_l, desc_l = angles_desc_fused(stack, xy_l, ex.level_hw, ex.lut_idx,
+                                            ex.wx, ex.wy, quotas=ex.quotas)
+    else:
+        angle_l = ic_angles_batch(stack, xy_l, ex.level_hw, ex.wx, ex.wy)
+        blurred = torch.round(gaussian_blur_stack(stack))
+        if cfg.desc_lut_bins:
+            desc_l = rbrief_batch_lut(blurred, xy_l, angle_l, ex.level_hw,
+                                      ex.lut_idx)
+        else:
+            desc_l = rbrief_batch(blurred, xy_l, angle_l, ex.level_hw, ex.pat)
     keep = [(l, q) for l, q in enumerate(ex.quotas) if q > 0]
     xy = torch.cat([xy_l[l, :q] for l, q in keep])
     resp = torch.cat([score_l[l, :q] for l, q in keep])

@@ -18,11 +18,15 @@ from __future__ import annotations
 
 import torch
 
+from orb_slam_tpu_torch.device import require_device
 from orb_slam_tpu_torch.geometry.se3 import se3_from_rt
 from orb_slam_tpu_torch.geometry.so3 import _hat, so3_exp, so3_log
 
 
-def sim3_identity(dtype=torch.float32, device="cpu"):
+def sim3_identity(dtype=torch.float32, device="cuda"):
+    """The identity Sim3 on `device` (the card unless the caller names
+    another)."""
+    device = require_device(device)
     return (torch.ones((), dtype=dtype, device=device),
             torch.eye(3, dtype=dtype, device=device),
             torch.zeros(3, dtype=dtype, device=device))

@@ -1,9 +1,18 @@
-"""Orientation and rBRIEF descriptors for all levels from one patch pass.
+"""Orientation and rBRIEF descriptors for all levels at once.
 
 Port of orb_slam_tpu/ops/descriptor_stack.py: `rbrief_lut_table`
 (:270-288), `lut_sample_indices` (:291-305), `quantize_angle` (:308-311)
 and `angles_desc_fused` (:369-453) in its default `rowfirst` patch mode,
-with the two-group quota split (:398-417).
+with the two-group quota split (:398-417): the extractor's default, one
+patch pass. Also the stacked extractor's other two variants: without the
+LUT (`desc_lut_bins=0`), `ic_angles_batch` (:167), `gaussian_blur_stack`
+(:456) and `rbrief_batch` (:244) at continuous rotation; with
+`patch_method="rowgather"`, `ic_angles_batch` and `rbrief_batch_lut`
+(:334) over the blurred canvas. JAX's "onehot" (`extract_patches_batch`
+:72) and "rowgather" (`extract_patches_batch_rowgather` :141) are two TPU
+strategies for gathering the same patches, both exact selections of
+bf16-rounded canvas values; here one gather (`extract_patches`) serves
+both.
 
 Where JAX runs gathers as one-hot matmuls (for the TPU's matrix unit),
 this port gathers. The values are the same: a one-hot selection is exact,
@@ -82,6 +91,20 @@ def extract_patches(stack: torch.Tensor, xy_l: torch.Tensor,
     return stack.reshape(-1)[flat].to(torch.bfloat16).to(torch.float32)
 
 
+def _lut_descriptors(flat: torch.Tensor, angles: torch.Tensor,
+                     lut_idx: torch.Tensor) -> torch.Tensor:
+    """[L, Q, 32] uint8 from flattened [L, Q, 39*39] integer-valued
+    patches: pair p's bit is sample 2p+1 > sample 2p of the pattern
+    rotated to the angle's bin."""
+    L, Q = flat.shape[0], flat.shape[1]
+    n_bins = lut_idx.shape[0]
+    samples = lut_idx[quantize_angle(angles, n_bins)]   # [L, Q, 512]
+    vals = torch.gather(flat, 2, samples)
+    bits = (vals[..., 1::2] > vals[..., 0::2]).to(torch.int32)
+    shifts = torch.arange(8, device=flat.device, dtype=torch.int32)
+    return (bits.reshape(L, Q, 32, 8) << shifts).sum(-1).to(torch.uint8)
+
+
 def angles_desc_fused(stack: torch.Tensor, xy_l: torch.Tensor,
                       level_hw: torch.Tensor, lut_idx: torch.Tensor,
                       wx: torch.Tensor, wy: torch.Tensor, quotas=None):
@@ -130,11 +153,71 @@ def angles_desc_fused(stack: torch.Tensor, xy_l: torch.Tensor,
     for i in range(7):
         blurred = blurred + k[i] * rows[:, :, :, i:i + _RB_SIZE]
     flat = torch.round(blurred).reshape(L, Q, _RB_SIZE * _RB_SIZE)
+    return angles, _lut_descriptors(flat, angles, lut_idx)
 
-    n_bins = lut_idx.shape[0]
-    samples = lut_idx[quantize_angle(angles, n_bins)]   # [L, Q, 512]
-    vals = torch.gather(flat, 2, samples)
-    bits = (vals[..., 1::2] > vals[..., 0::2]).to(torch.int32)
-    shifts = torch.arange(8, device=stack.device, dtype=torch.int32)
-    desc = (bits.reshape(L, Q, 32, 8) << shifts).sum(-1).to(torch.uint8)
-    return angles, desc
+
+def ic_angles_batch(stack: torch.Tensor, xy_l: torch.Tensor,
+                    level_hw: torch.Tensor, wx: torch.Tensor,
+                    wy: torch.Tensor) -> torch.Tensor:
+    """[L, Q] orientations from 31x31 patches of the raw canvas
+    (descriptor_stack.py:167-184): the moments of bf16-rounded pixel
+    values, f32 sums."""
+    L, Q = xy_l.shape[0], xy_l.shape[1]
+    p = extract_patches(stack, xy_l, level_hw, PATCH).reshape(L, Q, PATCH * PATCH)
+    return torch.atan2(p @ wy.reshape(-1), p @ wx.reshape(-1))
+
+
+def gaussian_blur_stack(stack: torch.Tensor, ksize: int = 7,
+                        sigma: float = 2.0) -> torch.Tensor:
+    """Separable 7x7 blur over the [L, H, W] canvas, reflect padding at
+    the canvas's edges (descriptor_stack.py:456-473): levels in the
+    top-left corner see zeros past their true edge. The sums run in the
+    JAX order, rows then columns, each ((0 + k0 p0) + k1 p1) + ..."""
+    F = torch.nn.functional
+    k = [float(v) for v in gaussian_kernel1d(ksize, sigma)]
+    r = ksize // 2
+    H, W = stack.shape[1], stack.shape[2]
+    p = F.pad(stack, (0, 0, r, r), mode="reflect")
+    out = 0.0
+    for i in range(ksize):
+        out = out + k[i] * p[:, i:i + H, :]
+    p = F.pad(out, (r, r), mode="reflect")
+    out2 = 0.0
+    for i in range(ksize):
+        out2 = out2 + k[i] * p[:, :, i:i + W]
+    return out2
+
+
+def rbrief_batch(blurred_stack: torch.Tensor, xy_l: torch.Tensor,
+                 angles_l: torch.Tensor, level_hw: torch.Tensor,
+                 pat: torch.Tensor) -> torch.Tensor:
+    """[L, Q, 32] uint8 rBRIEF at continuous rotation from 39x39 patches
+    of the blurred, rounded canvas (descriptor_stack.py:244-265): offsets
+    rotated in f32 and rounded half to even; pair p's bit is
+    I(A) < I(B). pat = `_PAT` [256, 2, 2] on the canvas's device."""
+    L, Q = xy_l.shape[0], xy_l.shape[1]
+    flat = extract_patches(blurred_stack, xy_l, level_hw, _RB_SIZE).reshape(
+        L, Q, _RB_SIZE * _RB_SIZE)
+    ca = torch.cos(angles_l)[..., None]
+    sa = torch.sin(angles_l)[..., None]
+    px, py = pat[:, :, 0].reshape(512), pat[:, :, 1].reshape(512)
+    col = torch.round(px * ca - py * sa).to(torch.int64)
+    row = torch.round(px * sa + py * ca).to(torch.int64)
+    r_in = (row + _RB_HALF).clamp(0, _RB_SIZE - 1)
+    c_in = (col + _RB_HALF).clamp(0, _RB_SIZE - 1)
+    vals = torch.gather(flat, 2, r_in * _RB_SIZE + c_in)   # [L, Q, 512]
+    bits = (vals[..., 0::2] < vals[..., 1::2]).to(torch.int32)
+    shifts = torch.arange(8, device=flat.device, dtype=torch.int32)
+    return (bits.reshape(L, Q, 32, 8) << shifts).sum(-1).to(torch.uint8)
+
+
+def rbrief_batch_lut(blurred_stack: torch.Tensor, xy_l: torch.Tensor,
+                     angles_l: torch.Tensor, level_hw: torch.Tensor,
+                     lut_idx: torch.Tensor) -> torch.Tensor:
+    """[L, Q, 32] uint8 rBRIEF at the angle's orientation bin from 39x39
+    patches of the blurred, rounded canvas (descriptor_stack.py:334-366;
+    the bit of JAX's int8 LUT product, as in `angles_desc_fused`)."""
+    L, Q = xy_l.shape[0], xy_l.shape[1]
+    flat = extract_patches(blurred_stack, xy_l, level_hw, _RB_SIZE).reshape(
+        L, Q, _RB_SIZE * _RB_SIZE)
+    return _lut_descriptors(flat, angles_l, lut_idx)

@@ -20,6 +20,8 @@ optimize_sim3", "loop project", "loop correct group", "loop fuse", "loop
 graph", "loop essential graph", "loop remap"), so a stage clock can split
 a call. The feature-to-point inversion of `project_loop_points` goes
 through `ops/scatter.set_last` as JAX's other last-writer scatters do.
+With SLAM_DEBUG set, detection and the Sim3 stage log their events at
+JAX's sites (:183-323) from values already on the host.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from orb_slam_tpu_torch.slam_map.observations import refresh_point_stats
 from orb_slam_tpu_torch.solvers.essential_graph import (
     optimize_essential_graph, relative_sim3_batch,
 )
+from orb_slam_tpu_torch.utils.log import dbg
 from orb_slam_tpu_torch.solvers.sim3 import _project, optimize_sim3, sim3_ransac
 from orb_slam_tpu_torch.solvers.two_view import sample_minimal_sets
 
@@ -163,6 +166,8 @@ class LoopCloser:
             min_score = self.db.min_covisible_score(ids, w, covis)
             cands = self.db.detect_loop_candidates(
                 ids, w, new_kf, covis, min_score, W_np)
+            dbg(f"loop kf{new_kf}: min_score={min_score:.3f} "
+                f"cands={cands} covis={len(covis)}")
             if not cands:
                 self.consistent_groups = []
                 return [], ids, w
@@ -180,6 +185,8 @@ class LoopCloser:
                 if best_count >= 3:
                     enough.append(c)
             self.consistent_groups = new_groups
+            dbg(f"loop kf{new_kf}: consistent={enough} "
+                f"groups={[c for _, c in new_groups]}")
             return enough, ids, w
         finally:
             self.db.add(new_kf, ids, w)
@@ -209,6 +216,7 @@ class LoopCloser:
                     max_dist=TH_LOW, nn_ratio=0.75, mutual=False,
                     check_rotation=True, unique=True)
                 n_matches = int(ok.sum())
+            dbg(f"sim3 kf-cand {cand}: matches={n_matches}")
             if n_matches < 20:
                 continue
             with system._stage("loop ransac"):
@@ -229,6 +237,7 @@ class LoopCloser:
                     p1, p2, uv1, uv2, ok, s2_1, s2_2, system.K_dev,
                     idx=self._sim3_sets(ok))
                 n_in = int(n_in)
+            dbg(f"sim3 cand {cand}: ransac_inliers={n_in}")
             if n_in < 20:
                 continue
             with system._stage("loop guided"):
@@ -271,9 +280,13 @@ class LoopCloser:
                     height=float(system.cfg.camera.height),
                     scale_factor=sf, n_levels=system.cfg.map.n_levels,
                     bounds=system.img_bounds)
-                n_total = int(inl.sum()) + int(proj_ok.sum())
+                n_proj = int(proj_ok.sum())
+                n_total = int(inl.sum()) + n_proj
+            dbg(f"sim3 cand {cand}: opt_inliers={n_in} "
+                f"projected={n_proj} total={n_total}")
             if n_total < 40:
                 continue
+            dbg(f"sim3 cand {cand}: ACCEPTED total={n_total}")
             return cand, (s, R, t), inl
         return None
 

@@ -35,6 +35,12 @@ JAX's. The chunk is not padded to `track_chunk_size`: frame b of a chunk
 depends only on frames 0..b, so the padded frames JAX computes and drops
 change nothing. `_relocalize` and the loop closer run their stages under
 `_stage` ("reloc ...", "loop ...") so a stage timer can split them.
+With SLAM_DEBUG set, local mapping logs its events through `utils/log.py`
+at JAX's sites (:1019-1164); a message that reads the device sits behind
+`if DEBUG:`, so without it the log adds no host sync. The threaded system
+is pipeline/async_system.py, which overrides the hooks `_apply_counters`,
+`_mapper_accepting`, `_dispatch_keyframe`, `_run_loop_closing` and
+`_publish_mapped_pose`.
 """
 
 from __future__ import annotations
@@ -79,6 +85,7 @@ from orb_slam_tpu_torch.solvers.pose_opt import pose_optimize
 from orb_slam_tpu_torch.solvers.two_view import (
     initialize_two_view, sample_minimal_sets,
 )
+from orb_slam_tpu_torch.utils.log import DEBUG, dbg
 
 # Tracking states (reference: include/Tracking.h:57-64)
 NO_IMAGES_YET = 0
@@ -884,6 +891,7 @@ class SLAMSystem:
                 culled=int(kill.sum()), created=[], fuse_bound=0, merged=0,
                 kf_culled=0)
             if kill.any():
+                dbg(f"kf{new_kf}: point-cull {int(kill.sum())}")
                 m = remove_points(m, torch.from_numpy(kill).to(self.device))
                 self.free_pt.extend(int(i) for i in np.where(kill)[0])
                 self.free_pt = sorted(set(self.free_pt))
@@ -929,6 +937,8 @@ class SLAMSystem:
                     stale[reused] = False
                     self.pt_forward[stale] = -1
                     self.pt_forward[reused] = reused
+                dbg(f"kf{new_kf}: triangulated {n_created} with kf{nb}")
+                if n_created:
                     self.free_pt = self.free_pt[n_created:]
 
         # --- SearchInNeighbors: two-way fuse with the first neighbours and
@@ -964,6 +974,9 @@ class SLAMSystem:
                 self._compose_forward(remap2)
                 counts["fuse_bound"] += int(b1) + int(b2)
                 counts["merged"] += int(g1) + int(g2)
+                if DEBUG:
+                    dbg(f"kf{new_kf}<->kf{nb}: fuse bound {int(b1)}+{int(b2)} "
+                        f"merged {int(g1)}+{int(g2)}")
             self._reclaim_points(m)
 
         with self._stage("refresh_point_stats"):
@@ -978,12 +991,22 @@ class SLAMSystem:
         with self._stage("BA phase 1"):
             m, outlier, (okf, ofeat) = bundle_adjust(
                 m, self.K_dev, cam_opt, pt_opt, iters1=5, iters2=0, **bkw)
+            if DEBUG:
+                dbg(f"kf{new_kf}: BA1 outlier-edges {int(outlier.sum())} "
+                    f"valid {int(m.pt_valid.sum())}")
             m = apply_edge_outliers(m, outlier, okf, ofeat)
+            if DEBUG:
+                dbg(f"kf{new_kf}: after BA1 eject valid {int(m.pt_valid.sum())}")
         if not aborted():
             with self._stage("BA phase 2"):
                 m, outlier, (okf, ofeat) = bundle_adjust(
                     m, self.K_dev, cam_opt, pt_opt, iters1=0, iters2=10, **bkw)
+                if DEBUG:
+                    dbg(f"kf{new_kf}: BA2 outlier-edges {int(outlier.sum())}")
                 m = apply_edge_outliers(m, outlier, okf, ofeat)
+                if DEBUG:
+                    dbg(f"kf{new_kf}: after BA2 eject valid "
+                        f"{int(m.pt_valid.sum())}")
         self._reclaim_points(m)
 
         # --- KeyFrameCulling over all covisible keyframes of the new one
@@ -994,6 +1017,8 @@ class SLAMSystem:
                     continue  # never cull the gauge keyframes
                 red, n_bound = keyframe_redundancy(m, nb)
                 if float(red) > cfg.kf_cull_redundancy and int(n_bound) > 20:
+                    dbg(f"kf{new_kf}: culling redundant kf{nb} "
+                        f"(red={float(red):.2f})")
                     m = remove_keyframe(m, nb)
                     m = self._repair_spanning_tree(m, nb)
                     self.free_kf.append(nb)

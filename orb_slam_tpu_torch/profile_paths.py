@@ -3,6 +3,7 @@ extract-and-track paths and the mapping path of chip_smoke.py, timed and
 profiled, and local BA's solver stages.
 
     python -m orb_slam_tpu_torch.profile_paths [--frames 64] [--spread]
+        [--async-periods SECONDS ...]
 
 The scene, map and settings are chip_smoke.py's (640x480, 1000 features,
 8 levels; the tracking paths against an 8192-slot map seeded from frame 0,
@@ -43,7 +44,12 @@ pose_optimize and the guided rounds. `loop_scene`, `loop_frames`,
 the loop path (a sideways path out and back over a wide scene, the map
 drifted through a Sim3 on the way out), its record of every loop-closing
 pass and of the state before each accepted correction, the stage clock
-that splits a pass, and the PCG pose graph at K = 1024. The loop turn
+that splits a pass, and the PCG pose graph at K = 1024. `async_system`,
+`async_path` and `async_summary` are phase 16: the loop path's frames
+through AsyncSLAMSystem with the mapper and loop threads live (the port
+of scripts/bench_async_pipeline.py), paced by `PacedFeed` as a camera
+sending one frame every ASYNC_FRAME_PERIOD seconds; `--async-periods`
+runs only that path, once at each pace given. The loop turn
 after the paths' turns (`profile_loop`) profiles the accepted pass per
 stage; `--spread` also runs the loop path per scene seed.
 """
@@ -74,11 +80,13 @@ from orb_slam_tpu_torch.io.synthetic import (
 )
 from orb_slam_tpu_torch.io.trajectory import ate_rmse, camera_centers_from_cw
 from orb_slam_tpu_torch.pipeline import system as slam
+from orb_slam_tpu_torch.pipeline.async_system import AsyncSLAMSystem
 from orb_slam_tpu_torch.pipeline.chunk import extract_track_chunk
 from orb_slam_tpu_torch.place.pretrained import load_pretrained
 from orb_slam_tpu_torch.slam_map.map_state import MapConfig, MapState
 from orb_slam_tpu_torch.slam_map.observations import refresh_point_stats
 from orb_slam_tpu_torch.solvers import local_ba as ba
+from orb_slam_tpu_torch.utils.timing import StageTimer, synchronize_card as _sync
 
 # the hand-written kernels of csrc/, whose time per launch is printed
 PORT_KERNELS = ("fast_score_nms_kernel", "pose_gn_kernel",
@@ -213,7 +221,7 @@ def relocalize_split(s: slam.SLAMSystem, frame, relocalize=None):
     (each reached only past the previous one's gate)."""
     record = {}
     timer = s._stage_timer
-    s._stage_timer = StageClock(record)
+    s._stage_timer = StageTimer(times=record)
     try:
         ok = (relocalize or s._relocalize)(frame)
     finally:
@@ -296,6 +304,15 @@ LOOP_OUT = 160
 LOOP_DRIFT_AT = 100
 LOOP_DRIFT = (1.15, (0.4, 0.0, 0.2))
 LOOP_CAND_BEFORE = LOOP_OUT // 4
+# the async path's pace: the loop path's frames as a camera sends them,
+# one every ASYNC_FRAME_PERIOD seconds, MAPPING_STEP per frame: a slow
+# hand-held sweep at 0.08 m/s. The path needs a keyframe nearly every frame
+# and a lost camera is not found again before the return, so one
+# integration must fit in a frame with room to spare: on the card they
+# took 160-290 ms (median) and up to 0.56-0.72 s over runs, and the camera
+# was lost at 0.2 s and at 0.4 s and kept at 1/3 s, 1/2 s and 1 s (PERF.md,
+# PR 9).
+ASYNC_FRAME_PERIOD = 1.0
 LOOP_SCENE_TEXT = (f"SyntheticScene(n_points=2400, extent=(24, 5, 4)), "
                    f"lateral_trajectory({LOOP_OUT}, step={MAPPING_STEP}) out and the "
                    f"same poses back")
@@ -356,23 +373,72 @@ def inject_drift(s: slam.SLAMSystem, scale: float, t):
     return recent
 
 
-def drive_loop_frames(s, frames, inject, working=slam.WORKING):
+def drive_loop_frames(s, frames, inject, working=slam.WORKING, feed=None):
     """The loop path's frames through `s.process_batch` (a SLAMSystem of
-    the port or of the JAX package, `working` its WORKING state), with
+    the port or of the JAX package, `working` its WORKING state), or
+    through `feed(s, frames[i:j], i)` where given, with
     `inject(s)` called once: just after the first keyframe at or past frame
     LOOP_DRIFT_AT, where the tracker's pose is the keyframe's (at any other
     frame the drifted tracker would start frames behind). Returns (the
     poses out, the frame after which the drift went in, what `inject`
     returned)."""
-    out = s.process_batch(frames[:LOOP_DRIFT_AT])
+    if feed is None:
+        feed = lambda system, batch, start: system.process_batch(batch)
+    out = feed(s, frames[:LOOP_DRIFT_AT], 0)
     i = LOOP_DRIFT_AT
     while i < len(frames) and not (s.state == working
                                    and s.last_kf_frame == s.frame_id - 1):
-        out += s.process_batch(frames[i:i + 1])
+        out += feed(s, frames[i:i + 1], i)
         i += 1
     injected = inject(s)
-    out += s.process_batch(frames[i:])
+    out += feed(s, frames[i:], i)
     return out, i - 1, injected
+
+
+class PacedFeed:
+    """A `drive_loop_frames` feed that hands the frames over as a camera
+    sending one every `period` seconds would: frame i arrives `i * period`
+    after the first, the caller waits for the next frame to arrive and
+    then gives `process_batch` every frame that has arrived, at most
+    `chunk` of them, with their arrival times as timestamps. The
+    reference's examples pace the same way, sleeping after each frame
+    until the next one's timestamp (Examples/Monocular/mono_tum.cc). Keeps
+    the host-clock seconds spent inside `process_batch` (`busy`: the
+    tracking thread's own time, vTimesTrack in mono_tum.cc), the calls
+    and the frames handed over in a call of more than one (the tracker
+    behind the camera). `pause(seconds)` holds the camera for a window the
+    caller does not count."""
+
+    def __init__(self, period: float, chunk: int):
+        self.period, self.chunk = period, chunk
+        self.t0 = None
+        self.busy = 0.0
+        self.calls = 0
+        self.behind = 0
+
+    def pause(self, seconds: float):
+        self.t0 += seconds
+
+    def __call__(self, s, frames, start):
+        if self.t0 is None:
+            self.t0 = time.perf_counter() - start * self.period
+        out, i, n = [], 0, len(frames)
+        while i < n:
+            due = self.t0 + (start + i) * self.period
+            now = time.perf_counter()
+            if now < due:
+                time.sleep(due - now)
+                now = time.perf_counter()
+            arrived = int((now - self.t0) / self.period) + 1 - start
+            j = min(n, i + self.chunk, max(i + 1, arrived))
+            stamps = [(start + k) * self.period for k in range(i, j)]
+            t = time.perf_counter()
+            out += s.process_batch(frames[i:j], timestamps=stamps)
+            self.busy += time.perf_counter() - t
+            self.calls += 1
+            self.behind += (j - i) if j - i > 1 else 0
+            i = j
+        return out
 
 
 def loop_snapshot(s: slam.SLAMSystem):
@@ -422,7 +488,7 @@ def loop_split(s: slam.SLAMSystem, slot: int, process=None):
     "loop graph", "loop essential graph" and "loop remap"."""
     record = {}
     timer = s._stage_timer
-    s._stage_timer = StageClock(record)
+    s._stage_timer = StageTimer(times=record)
     try:
         ok = (process or s.loop_closer.process)(s, slot)
     finally:
@@ -543,6 +609,170 @@ def loop_summary(r):
             f"{cl}; keyframe ATE at the end {ate:.5f} ({ate / length:.5f} of the "
             f"{length:.3f} m path, scale {scale:.4f}); {s.kf_counter} keyframes, "
             f"{s.n_keyframes} live; {r['seconds'] * 1e3 / r['n_frames']:.3f} ms/frame")
+
+
+def async_system(scene, device) -> AsyncSLAMSystem:
+    """`loop_system`'s configuration as an AsyncSLAMSystem: the mapper and
+    loop threads start with it."""
+    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy,
+                         width=scene.width, height=scene.height)
+    return AsyncSLAMSystem(slam.SlamConfig(
+        camera=camera, vocabulary=load_pretrained()), device=device)
+
+
+def async_path(scene, device, system=None, period=ASYNC_FRAME_PERIOD):
+    """The loop path's frames through a fresh `async_system` (or `system`)
+    with its threads live: process_batch on the caller's thread, fed by a
+    `PacedFeed` at one frame every `period` seconds and at most the
+    config's chunk per call, local mapping and loop closing on their
+    threads (the port of scripts/bench_async_pipeline.py, paced as the
+    reference's examples pace a sequence). Only the mapper writes the map,
+    so LOOP_DRIFT goes in inside an exclusive window where
+    `drive_loop_frames` places it: `finish()` (the queue drains to the
+    keyframe at or after LOOP_DRIFT_AT; `release()` would drop queued
+    keyframes, as LocalMapping::Release does), `request_stop()`,
+    `inject_drift`, `release()`; the camera waits out that window. Each
+    loop correction is recorded on the loop thread (frame, keyframe pair,
+    group, merges, keyframe ATE before and after).
+    Returns a dict: the system (its threads still running: the caller
+    closes it), the ground-truth poses, the frames, the poses out, the drift's frame
+    and the keyframe ATE just before it, the closures, the period, and
+    host-clock seconds of the tracking thread inside process_batch
+    (`track_s`), of the whole paced run without the injection window
+    (`wall_s`), of the final `finish()` (`drain_s`) and of the injection
+    window (`inject_s`), the feed's calls and frames handed over
+    behind the camera, and per keyframe integration on the mapper thread
+    (the keyframe's frame, the tracker's frame when it ended, host-clock
+    seconds)."""
+    poses, frames = loop_frames(scene, device)
+    s = system or async_system(scene, device)
+    closures = []
+    setup = s._setup_place_recognition
+
+    def setup_recorded(*args):
+        setup(*args)
+        lc = s.loop_closer
+        if lc is None:
+            return
+        correct = lc.correct
+
+        def recorded_correct(system, new_kf, cand, S12):
+            before = keyframe_ate(system, poses)[0]
+            ok = correct(system, new_kf, cand, S12)
+            closures.append(dict(frame_id=system.frame_id - 1, ate_before=before,
+                                 ate_after=keyframe_ate(system, poses)[0],
+                                 **lc.last_correction))
+            return ok
+
+        lc.correct = recorded_correct
+
+    s._setup_place_recognition = setup_recorded
+    integrations = []
+    integrate = s._integrate_keyframe
+
+    def timed_integrate(frame, *args, **kw):
+        t = time.perf_counter()
+        try:
+            return integrate(frame, *args, **kw)
+        finally:
+            integrations.append((frame.frame_id, s.frame_id, time.perf_counter() - t))
+
+    s._integrate_keyframe = timed_integrate
+    feed = PacedFeed(period, s.cfg.track_chunk_size)
+    window = {}
+
+    def inject(system):
+        t = time.perf_counter()
+        system.finish()
+        before = keyframe_ate(system, poses)[0]
+        system.request_stop()
+        try:
+            inject_drift(system, *LOOP_DRIFT)
+        finally:
+            system.release()
+        window["s"] = time.perf_counter() - t
+        feed.pause(window["s"])
+        return before
+
+    try:
+        _sync()
+        t = time.perf_counter()
+        out, drift_after, ate_drift = drive_loop_frames(s, frames, inject, feed=feed)
+        _sync()
+        wall_s = time.perf_counter() - t - window["s"]
+        t = time.perf_counter()
+        s.finish()
+        _sync()
+        drain_s = time.perf_counter() - t
+    except BaseException:
+        s.close()
+        raise
+    return dict(system=s, poses=poses, frames=frames, out=out,
+                drift=(drift_after, ate_drift), closures=closures, period=period,
+                track_s=feed.busy, wall_s=wall_s, drain_s=drain_s,
+                inject_s=window["s"], calls=feed.calls, behind=feed.behind,
+                integrations=integrations, n_frames=len(frames))
+
+
+def _ranges(ids):
+    """'a-b, c' for sorted integers."""
+    out, start = [], None
+    for i, v in enumerate(ids):
+        if start is None:
+            start = v
+        if i + 1 == len(ids) or ids[i + 1] != v + 1:
+            out.append(f"{start}" if start == v else f"{start}-{v}")
+            start = None
+    return ", ".join(out)
+
+
+def async_summary(r):
+    """One line on an `async_path` result: the pace, the first frame
+    tracked, the share of later frames tracked and the frames lost,
+    n_relocs, n_loops_closed, each closure (its frame, keyframe pair and
+    the candidate's frame, merges, keyframe ATE before and after), the
+    keyframe ATE at the end, keyframes, the tracking thread's ms/frame
+    inside process_batch, the paced run's wall ms/frame, the final drain,
+    and the frames handed over behind the camera."""
+    s, out = r["system"], r["out"]
+    first = next((i for i, p in enumerate(out) if p is not None), None)
+    tracked = 0 if first is None else sum(p is not None for p in out[first:])
+    n_after = 0 if first is None else len(out) - first
+    lost = [] if first is None else [i for i in range(first, len(out))
+                                     if out[i] is None]
+    fid = s.map.kf_frame_id.cpu().numpy()
+    cl = "; ".join(
+        f"closure near frame {c['frame_id']}: keyframe {c['new_kf']} (frame "
+        f"{fid[c['new_kf']]}) to {c['cand']} (frame {fid[c['cand']]}), group "
+        f"{c['group']}, {c['merged']} points merged, keyframe ATE "
+        f"{c['ate_before']:.5f} -> {c['ate_after']:.5f}"
+        for c in r["closures"]) or "no closure"
+    if s.n_keyframes:
+        ate, scale, length, _ = keyframe_ate(s, r["poses"])
+        ate_text = (f"keyframe ATE at the end {ate:.5f} ({ate / length:.5f} of the "
+                    f"{length:.3f} m path, scale {scale:.4f})")
+    else:
+        ate_text = "no keyframe at the end"
+    n = r["n_frames"]
+    integ = r["integrations"]
+    lag = [done - kf for kf, done, _ in integ]
+    integ_text = (f"{len(integ)} integrations on the mapper thread, "
+                  f"{statistics.median(x for _, _, x in integ) * 1e3:.1f} ms median, "
+                  f"{max(x for _, _, x in integ) * 1e3:.1f} max, the tracker "
+                  f"{statistics.median(lag)} frames on (median, max {max(lag)}) when "
+                  f"each ended" if integ else "no integration")
+    return (f"one frame every {r['period'] * 1e3:.0f} ms: first frame tracked {first}, "
+            f"{tracked} of {n_after} after it tracked "
+            f"(lost: {_ranges(lost) or 'none'}), n_relocs {s.n_relocs}, "
+            f"n_loops_closed {s.n_loops_closed}; drift after frame {r['drift'][0]}, "
+            f"keyframe ATE before it {r['drift'][1]:.5f}; {cl}; {ate_text}; "
+            f"lost_count {s.lost_count}, state {s.state}; {integ_text}; "
+            f"{s.kf_counter} keyframes, {s.n_keyframes} live; tracking "
+            f"thread {r['track_s'] * 1e3 / n:.3f} ms/frame inside process_batch, "
+            f"wall {r['wall_s'] * 1e3 / n:.3f} ms/frame, the final drain "
+            f"{r['drain_s'] * 1e3:.1f} ms; {r['calls']} calls, {r['behind']} frames "
+            f"handed over behind the camera; the injection window "
+            f"{r['inject_s'] * 1e3:.1f} ms (not counted)")
 
 
 def chain_pose_graph(K: int, seed: int = 0):
@@ -727,37 +957,6 @@ def reloc_summary(r):
             f"{r['seconds'] * 1e3 / r['n_frames']:.3f} ms/frame")
 
 
-def _sync():
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-
-
-class StageClock:
-    """A SLAMSystem stage timer: host-clock seconds of each stage, the
-    device synchronized at both ends (where there is one), appended to
-    `record[name]`."""
-
-    def __init__(self, record: dict):
-        self.record = record
-
-    def __call__(self, name):
-        return _Stage(self.record, name)
-
-
-class _Stage:
-    def __init__(self, record, name):
-        self.record, self.name = record, name
-
-    def __enter__(self):
-        _sync()
-        self.t = time.perf_counter()
-
-    def __exit__(self, *exc):
-        _sync()
-        self.record.setdefault(self.name, []).append(time.perf_counter() - self.t)
-        return False
-
-
 def device_work_by_label(trace_path):
     """{label: (device us, work items)} of a chrome trace: each kernel,
     copy or fill is charged to the innermost user annotation whose host
@@ -939,7 +1138,7 @@ def profile_mapping(scene, poses, frames, N, card):
     dev = frames.device
     host = {}
     s = mapping_system(scene, poses, frames, dev)
-    s._stage_timer = StageClock(host)
+    s._stage_timer = StageTimer(times=host)
     torch.cuda.synchronize()
     t = time.perf_counter()
     s.process_batch(frames[2:N + 2])
@@ -1015,6 +1214,9 @@ def main(argv=None):
     ap.add_argument("--spread", action="store_true",
                     help="run only mapping_spread: the mapping path's keyframe "
                          "centre error over scene seeds and scatter orders")
+    ap.add_argument("--async-periods", type=float, nargs="+", metavar="SECONDS",
+                    help="run only async_path, once at each pace (seconds "
+                         "between frames)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths needs a CUDA device; none is visible")
@@ -1027,6 +1229,17 @@ def main(argv=None):
 
     if args.spread:
         mapping_spread(card, args.frames)
+        return
+    if args.async_periods:
+        scene = loop_scene()
+        # warm-up: the kernels built and the libraries loaded, as in
+        # chip_smoke.py's phase 16, which runs after phase 14
+        _, frames = loop_frames(scene, torch.device("cuda", 0))
+        loop_system(scene, torch.device("cuda", 0)).process_batch(frames[:24])
+        for period in args.async_periods:
+            r = async_path(scene, torch.device("cuda", 0), period=period)
+            r["system"].close()
+            print(f"async path: {async_summary(r)}; {card}", flush=True)
         return
     dev = torch.device("cuda", 0)
     W, H, N = 640, 480, args.frames

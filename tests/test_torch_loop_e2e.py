@@ -21,6 +21,15 @@ reference chip_smoke.py's phase 14 holds the port to), or over the
 full-width ring without drift, and prints one JSON line:
 
     python -m tests.test_torch_loop_e2e jax|port SCENE_SEED|ring
+
+With `keep-up N [DEVICE [PERIOD ...]]` it runs the loop path's first N frames
+(scene seed 0) through the port's sequential SLAMSystem with a mapper
+latency (`SlamConfig.mapper_latency_frames`) of 2 and of 4 frames, one
+frame per call with and without the tracker adopting the BA-refined
+keyframe pose, and through the port's AsyncSLAMSystem drained after every
+frame and paced at one frame every PERIOD seconds (and, on the CPU, the
+JAX package's AsyncSLAMSystem), and prints one JSON line for each: what
+the threads change on these frames (ROADMAP C17).
 """
 
 import numpy as np
@@ -66,9 +75,12 @@ def test_ring_scene_and_trajectory_bit_equal_to_jax(kw):
             np.testing.assert_array_equal(fb[k], fa[k], k)
 
 
-def oracle_loop_run():
+def oracle_loop_run(make_system=tsys.SLAMSystem):
     """(the port's system, frames tracked, frames, the keyframe ATE just
-    before each correction and just after it) on the oracle ring."""
+    before each correction and just after it) on the oracle ring, through
+    `make_system(cfg, device="cpu")`. A system with threads (an
+    AsyncSLAMSystem) is drained after every frame, its drift injected in
+    a request_stop / release window, and closed at the end."""
     scene = JaxScene(n_points=1500, seed=5, extent=(0, 4.0, 0),
                      depth_range=(7.0, 13.0), ring=True)
     n_slots = 250
@@ -80,7 +92,8 @@ def oracle_loop_run():
         local_ba_window=6, orb=None, enable_relocalisation=False,
         max_frames_between_kf=6, min_frames_between_kf=4, kf_tracked_ratio=1.5,
         track_radius=25.0)
-    s = tsys.SLAMSystem(cfg, device="cpu")
+    s = make_system(cfg, device="cpu")
+    threads = hasattr(s, "finish")
     poses = [jax_e2e.yaw_pose(0.0, [-0.5 + 0.0625 * i, 0.0, 0.0]) for i in range(8)]
     for i in range(116):
         yaw = 2 * np.pi * i / 96
@@ -89,23 +102,35 @@ def oracle_loop_run():
     ates = []
     tracked = 0
     wrapped = None
-    for fi, T in enumerate(poses):
-        if s.loop_closer is not None and s.loop_closer is not wrapped:
-            wrapped = s.loop_closer
-            correct = s.loop_closer.correct
+    try:
+        for fi, T in enumerate(poses):
+            if s.loop_closer is not None and s.loop_closer is not wrapped:
+                wrapped = s.loop_closer
+                correct = s.loop_closer.correct
 
-            def watched(system, new_kf, cand, S12, correct=correct):
-                before = pp.keyframe_ate(system, poses)[0]
-                ok = correct(system, new_kf, cand, S12)
-                ates.append((before, pp.keyframe_ate(system, poses)[0]))
-                return ok
+                def watched(system, new_kf, cand, S12, correct=correct):
+                    before = pp.keyframe_ate(system, poses)[0]
+                    ok = correct(system, new_kf, cand, S12)
+                    ates.append((before, pp.keyframe_ate(system, poses)[0]))
+                    return ok
 
-            s.loop_closer.correct = watched
-        out = s.process(features=scene.observe(T, n_slots=n_slots, pix_noise=0.4))
-        tracked += out is not None
-        if fi == 60:
-            assert s.state == tsys.WORKING
-            pp.inject_drift(s, 1.15, [0.4, 0.0, 0.2])
+                s.loop_closer.correct = watched
+            out = s.process(features=scene.observe(T, n_slots=n_slots, pix_noise=0.4))
+            if threads:
+                s.finish()
+            tracked += out is not None
+            if fi == 60:
+                assert s.state == tsys.WORKING
+                if threads:
+                    s.request_stop()
+                try:
+                    pp.inject_drift(s, 1.15, [0.4, 0.0, 0.2])
+                finally:
+                    if threads:
+                        s.release()
+    finally:
+        if threads:
+            s.close()
     return s, tracked, len(poses), ates
 
 
@@ -228,11 +253,126 @@ def ring_reference(package: str):
         keyframes=s.kf_counter, live=s.n_keyframes, seconds=time.perf_counter() - t)))
 
 
+def keep_up(n: int, device: str = "cpu", periods=(0.3,)):
+    """The loop path's first `n` frames (seed 0) at the SlamConfig
+    defaults with the shipped vocabulary on `device`: through the port's
+    sequential SLAMSystem with a mapper latency
+    (`SlamConfig.mapper_latency_frames`) of 2 and of 4 frames; one frame
+    per call with the tracker adopting the BA-refined keyframe pose
+    (`_publish_mapped_pose`) and keeping its own; the AsyncSLAMSystem
+    drained after every frame; the AsyncSLAMSystem fed by
+    `profile_paths.PacedFeed` at one frame every `period` seconds, for
+    each of `periods`; and, on the CPU, the JAX package's
+    AsyncSLAMSystem. One JSON line each with the frames lost, keyframes,
+    resets, per frame the inliers at the keyframe decision, whether the
+    mapper was accepting and whether a keyframe was made, and per
+    integration the keyframe's frame, the tracker's frame at its start
+    and end and its host-clock ms."""
+    import dataclasses
+    import json
+    import time
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scene = pp.loop_scene(0)
+    _, frames = pp.loop_frames(scene, device)
+    frames = frames[:n]
+
+    def traced(s):
+        log, integrations = [], []
+        need, integrate = s._need_new_keyframe, s._integrate_keyframe
+
+        def recorded(frame_id, n_inliers):
+            accepting = s._mapper_accepting()
+            made = need(frame_id, n_inliers)
+            log.append((frame_id, int(n_inliers), bool(accepting), bool(made)))
+            return made
+
+        def timed(frame, *args, **kw):
+            start, t = s.frame_id, time.perf_counter()
+            try:
+                return integrate(frame, *args, **kw)
+            finally:
+                integrations.append((frame.frame_id, start, s.frame_id,
+                                     round((time.perf_counter() - t) * 1e3, 1)))
+
+        s._need_new_keyframe, s._integrate_keyframe = recorded, timed
+        resets = [0]
+        reset = s.reset
+
+        def counted():
+            resets[0] += 1
+            reset()
+
+        s.reset = counted
+        return log, resets, integrations
+
+    def emit(name, s, out, log, resets, integrations):
+        print(json.dumps(dict(
+            run=name, frames=len(out),
+            lost_frames=[k for k, p in enumerate(out) if p is None],
+            keyframes=s.kf_counter, state=s.state, lost_count=s.lost_count,
+            resets=resets[0], decisions=log, integrations=integrations)), flush=True)
+
+    if device == "cpu":
+        import jax
+
+        jax.config.update("jax_platforms", "cpu")
+        from orb_slam_tpu.geometry import CameraModel as JaxCamera
+        from orb_slam_tpu.pipeline.async_system import AsyncSLAMSystem as JaxAsync
+        from orb_slam_tpu.pipeline.system import SlamConfig
+
+        js = JaxAsync(SlamConfig(camera=JaxCamera.create(
+            scene.fx, scene.fy, scene.cx, scene.cy, width=scene.width,
+            height=scene.height)))
+        try:
+            out = js.process_batch(list(frames.numpy()))
+            js.finish()
+        finally:
+            js.close()
+        emit("jax AsyncSLAMSystem", js, out, [], [0], [])
+    for latency in (2, 4):
+        s = pp.loop_system(scene, device)
+        s.cfg = dataclasses.replace(s.cfg, mapper_latency_frames=latency)
+        rec = traced(s)
+        emit(f"port SLAMSystem, mapper latency {latency}", s, s.process_batch(frames),
+             *rec)
+    for publish in (True, False):
+        s = pp.loop_system(scene, device)
+        if not publish:
+            s._publish_mapped_pose = lambda new_kf: None
+        rec = traced(s)
+        emit(f"port SLAMSystem, one frame per call, the tracker "
+             f"{'adopting the keyframe pose' if publish else 'keeping its own pose'}",
+             s, s.process_batch(frames, chunk_size=1), *rec)
+    for period in (None,) + tuple(periods):
+        paced = period is not None
+        s = pp.async_system(scene, device)
+        rec = traced(s)
+        try:
+            if paced:
+                out = pp.PacedFeed(period, s.cfg.track_chunk_size)(s, frames, 0)
+            else:
+                out = []
+                for k in range(len(frames)):
+                    out += s.process_batch(frames[k:k + 1])
+                    s.finish()
+            s.finish()
+        finally:
+            s.close()
+        emit(f"port AsyncSLAMSystem, "
+             f"{f'one frame every {period} s' if paced else 'drained after every frame'}",
+             s, out, *rec)
+
+
 if __name__ == "__main__":
     import sys
 
     package, scenario = sys.argv[1:3]
-    if scenario == "ring":
+    if package == "keep-up":
+        keep_up(int(scenario), *sys.argv[3:4], *([tuple(map(float, sys.argv[4:]))]
+                                                 if sys.argv[4:] else []))
+    elif scenario == "ring":
         ring_reference(package)
     elif package == "jax":
         jax_loop_reference(int(scenario))

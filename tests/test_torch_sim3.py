@@ -82,7 +82,7 @@ def test_sim3_algebra_matches_jax():
     near(st.numpy(), jsim3.sim3_stack(g1j), 1e-6)
     for x, y in zip(tsim3.sim3_unstack(st), g1t):
         assert torch.equal(x, y)
-    s, R, t = tsim3.sim3_identity()
+    s, R, t = tsim3.sim3_identity(device="cpu")
     assert float(s) == 1.0 and torch.equal(R, torch.eye(3)) and not t.any()
 
 
