@@ -7,9 +7,11 @@ cell-fused detector; then the mapping path from a seeded map and the
 whole system from raw frames through its own two-view initialisation,
 that system lost in a blackout and relocalised against its keyframe
 database, that system closing a drifted loop, the same frames with the
-mapper and loop threads live, and the command line.
+mapper and loop threads live, the command line, and the mapping path with
+its bundle adjustment sharded over a mesh of devices.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh    # phases 1, 2, 9 and 18 alone
 
 Phases (any failure raises and the exit code is non-zero):
   1. device: a CUDA card is required; prints `nvidia-smi` name and power
@@ -182,17 +184,48 @@ Phases (any failure raises and the exit code is non-zero):
  17. the CLI: 64 frames of the mapping scene and trajectory written as
      binary PGM, a settings file (FAST, 1000 features, 8 levels) and the
      ground truth as a TUM file in a temporary directory; `cli.main(["run",
-     settings, frames, "--chunk", "8", "--async", "--out", traj])` on the
-     card, then `cli.main(["eval", traj, gt])`. Checks: >= 6 keyframes in
-     the trajectory, the eval's ate_rmse <= 2% of the ground-truth path
-     length, K1 once per extraction. Prints the `[final]` line (its fps).
+     settings, frames, "--chunk", "8", "--async", "--pace", CLI_PACE,
+     "--out", traj])` on the card (the frames handed over as a camera
+     sending one every CLI_PACE seconds would), then `cli.main(["eval",
+     traj, gt])`. Checks: >= 6 keyframes in the trajectory, the eval's
+     ate_rmse <= 2% of the ground-truth path length, K1 once per
+     extraction. Then the same run unpaced, as JAX's CLI feeds a
+     directory: K1 once per extraction, and its keyframes and final state
+     printed as ROADMAP C17's reading (an unpaced caller outruns local
+     mapping, so what it keeps depends on the host's speed). Prints both
+     `[final]` lines (their fps).
+ 18. mesh mode (run right after phase 9, from its final map and saved
+     state): a mesh of MESH_SHARDS entries cuda:i modulo the visible
+     cards (shared cuda:0 on one card, distinct cards where there are
+     enough; the line says which), 4 x 1 for BA and 2 x 2 for matching.
+     bundle_adjust on phase 9's final map around its newest keyframe at
+     the mapping path's shapes (max_ba_cams 80, max_ba_points 2048,
+     OBS_CAP 32) with and without the mesh, on the points _local_mapping
+     chooses and on those of them seen by >= 3 keyframes: on the scale of
+     a map of unit median depth, poses within 5e-5, the points seen by >=
+     3 keyframes within 5e-4 and the others within 1.5e-2, the robust
+     costs within 1e-4 relative (the LM's stop tolerance), the outlier and
+     observation tables equal, every reduction of the mesh run over all
+     its shards, and the mesh run repeated bit for bit; both timed with
+     CUDA events. One _integrate_keyframe from phase 9's saved
+     state with `SlamConfig.mesh` against one device, in turns (on the
+     same scale poses within 1e-4, points 1e-3 / 1.5e-2; at most 2
+     validity flips, under 0.5% of kf_obs differing, the two mesh runs
+     bit-equal); then that
+     system maps the next MESH_FRAMES frames one per chunk through
+     process_batch, every BA on the mesh: each frame tracked, keyframe ATE
+     <= 2% of the path, K1 once per frame, K2 at least once, K3 and K4
+     never. sharded_hamming_argmin at [4096, 8] x [1000, 8] and
+     sharded_ransac_best over 300 integer scores (ties at the maximum)
+     equal to their one-device answers.
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last three lines are the kernel table as JSON (launches from
 the path that runs the kernel: K1 and K2 the FAST path, K3 the Harris
 path, K4 the cell-fused run; `init_path_launches` those of phase 10,
 `reloc_path_launches` those of phase 12's checked run,
 `loop_path_launches` those of phase 14's, `async_path_launches` those
-of phase 16's, `cli_path_launches` those of phase 17's `run`;
+of phase 16's, `cli_path_launches` those of phase 17's paced `run`,
+`mesh_path_launches` those of phase 18's mesh-mode mapping run;
 `minmax_floor_ms` for the stencil kernels),
 the card's name and power limit, and
 {"ok": true, "device": ...}.
@@ -292,17 +325,47 @@ MAX_LOOP_AFTER_VS_JAX = 1.1
 MAX_LOOP_ATE_VS_JAX = 1.5
 MAX_LOOP_DS12 = 1e-4
 MAX_LOOP_DGRAPH = 3e-4
-# the CLI phase (phase 17): frames of the mapping trajectory
+# the mesh phase (phase 18): the shards of its meshes (cuda:i modulo the
+# visible cards), the frames after the saved keyframe it tracks and maps,
+# the sizes of its sharded matching and RANSAC, and its bounds:
+# tests/test_parallel.py's for a mesh against one device, whole BA (poses
+# 5e-5, points 5e-4) and one integration (1e-4, 1e-3), with
+# tests/test_torch_system_map.py's for the points seen by one or two
+# keyframes, which a reordered sum moves along their rays (ROADMAP C7).
+# Those bounds hold on maps of unit median depth, as the two-view
+# initialisation scales them; phase 9's map is metric (points 4-12 m out),
+# so distances are taken over its median depth, and rotations as they are.
+# The LM stops a phase once a step gains under 1e-4 of the cost, a test
+# that flips with the f32 order of the sums (phase 9's integration on the
+# card and the CPU ran its second phase for 9 and 1 iterations), so the
+# two BAs may stop at other iterations; their robust costs must then agree
+# within that tolerance
+MESH_SHARDS = 4
+MESH_FRAMES = 16
+MESH_MATCH_ROWS, MESH_MATCH_COLS, MESH_HYPOTHESES = 4096, 1000, 300
+MESH_BA_POSE, MESH_BA_POINT, MESH_BA_COST = 5e-5, 5e-4, 1e-4
+MESH_INTEGRATION_POSE, MESH_INTEGRATION_POINT = 1e-4, 1e-3
+WEAK_POINT_DIFF = 1.5e-2
 # phase 16 holds the async path to phase 14's loop checks
 ASYNC_LOOP_GATED = True
+# the CLI phase (phase 17): frames of the mapping trajectory, and the
+# seconds between frames of its gated run. Phase 9's integrations on
+# these frames take ~150 ms; unpaced, the run kept 15 keyframes in one
+# call and 5 in another (PERF.md, PR 10)
 CLI_FRAMES = 64
+CLI_PACE = 0.5
 
 
-def device_line() -> str:
+def card_lines() -> list:
+    """`nvidia-smi`'s name and power limit of every visible card."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def device_line() -> str:
+    return card_lines()[0]
 
 
 def cuda_ms(fn, reps=30, trials=3):
@@ -907,6 +970,244 @@ def mapping_path(dev, card, kernels, scene):
         print(f"BA solver step at P={P}, O=32, Kl=80 (scripts/profile_ba.py's "
               f"inputs, CUDA-event medians): "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()) + f"; {card}")
+    return launches, dict(snap=snap, args=(frame, obs, n_in, pose), system=s,
+                          poses=poses, frames=frames)
+
+
+def median_depth(state, kf):
+    """The median depth of the live points in keyframe kf's camera: the
+    map's scale (the two-view initialisation sets it to 1)."""
+    T = state.kf_pose[kf]
+    z = state.pt_pos[state.pt_valid] @ T[2, :3] + T[2, 3]
+    return float(z[z > 0].median())
+
+
+def ba_difference(a, b, n_obs, depth):
+    """Two maps' differences on the scale of a map of unit median depth
+    (distances over `depth`): (largest |d R| over the live keyframes,
+    largest |d t|, largest |d point| over the points live in both and
+    seen by >= 3 keyframes, over all of them, validity flips, share of
+    kf_obs differing)."""
+    kv = a.kf_valid & b.kf_valid
+    pv = a.pt_valid & b.pt_valid
+    dT = (a.kf_pose - b.kf_pose)[kv].abs()
+    d = (a.pt_pos - b.pt_pos).abs().amax(1) / depth
+    return (float(dT[:, :3, :3].max()), float(dT[:, :3, 3].max()) / depth,
+            float(d[pv & (n_obs >= 3)].max()), float(d[pv].max()),
+            int((a.pt_valid != b.pt_valid).sum()),
+            float((a.kf_obs != b.kf_obs).float().mean()))
+
+
+def ba_cost(state, K, pt_opt, outlier, scale_factor):
+    """BA's robust cost (local_ba's LM metric) of `state` over the edges of
+    the points pt_opt that BA kept as inliers."""
+    from orb_slam_tpu_torch.solvers import local_ba
+
+    obs_kf, _, _, uv, inv_s2, edge_on = local_ba._ba_inputs(state, pt_opt,
+                                                            scale_factor)
+    chi2, z = local_ba._edge_chi2(state.kf_pose, state.pt_pos, obs_kf, uv, K, inv_s2)
+    return float(local_ba._robust_cost(chi2, z, edge_on & ~outlier))
+
+
+def mesh_devices() -> list:
+    """MESH_SHARDS entries cuda:i, i modulo the visible cards."""
+    n_cards = torch.cuda.device_count()
+    return [torch.device("cuda", i % n_cards) for i in range(MESH_SHARDS)]
+
+
+def mesh_phase(dev, card, kernels, mapped, devices):
+    """Phase 18 (module docstring) on a mesh of `devices`. Returns the
+    K1..K4 launches of the mesh-mode mapping run."""
+    from orb_slam_tpu_torch.ops.matching import hamming_matrix
+    from orb_slam_tpu_torch.parallel import make_mesh
+    from orb_slam_tpu_torch.parallel.sharding import (
+        sharded_hamming_argmin, sharded_ransac_best,
+    )
+    from orb_slam_tpu_torch.profile_paths import keyframe_ate
+    from orb_slam_tpu_torch.slam_map.observations import OBS_CAP, observation_table
+    from orb_slam_tpu_torch.solvers import local_ba
+
+    mesh = make_mesh(devices=devices, model_axis=1)        # BA: 4 x 1
+    grid = make_mesh(devices=devices)                       # matching: 2 x 2
+    distinct = len(set(devices))
+    spread = (f"{len(devices)} shards on distinct devices {devices}"
+              if distinct == len(devices) else
+              f"{len(devices)} shards sharing {distinct} device(s) {sorted(set(map(str, devices)))}")
+    print(f"mesh mode: {spread}; BA mesh {mesh.shape}, matching mesh "
+          f"{grid.shape}; cards: {card_lines()}")
+
+    # the reductions bundle_adjust makes, and over how many shards each
+    reductions = []
+    plain_psum = local_ba.psum
+
+    def counted_psum(parts):
+        reductions.append(len(parts))
+        return plain_psum(parts)
+
+    # BA with and without the mesh on phase 9's final map around its newest
+    # keyframe: the points _local_mapping chooses, and those of them seen
+    # by >= 3 keyframes; at the mapping path's shapes
+    s = mapped["system"]
+    m, cfg = s.map, s.cfg
+    kf = s.last_kf_slot
+    cam_opt, local_pts = s._local_ba_sets(m, kf, s._covisible_neighbors(m, kf)[2])
+    n_obs = observation_table(m)[2].sum(1)
+    depth = median_depth(m, kf)
+    kw = dict(max_opt_cams=cfg.max_ba_cams, max_opt_pts=cfg.max_ba_points,
+              scale_factor=cfg.map.scale_factor)
+    failures = []
+    for label, pt_opt in (("local points", local_pts),
+                          ("seen by >= 3 keyframes", local_pts & (n_obs >= 3))):
+        runs = {}
+        reductions.clear()
+        local_ba.psum = counted_psum
+        try:
+            for name, mm in (("single", None), ("mesh", mesh), ("again", mesh)):
+                its = []
+                runs[name] = local_ba.bundle_adjust(m, s.K_dev, cam_opt, pt_opt,
+                                                    mesh=mm, iterations=its,
+                                                    **kw) + (its,)
+        finally:
+            local_ba.psum = plain_psum
+        (ss, so, st, si), (ms, mo, mt, mi), (rs, ro, _, _) = runs.values()
+        dR, dt, seen3_d, all_d, _, _ = ba_difference(ms, ss, n_obs, depth)
+        cost_s, cost_m = (ba_cost(x, s.K_dev, pt_opt, o, cfg.map.scale_factor)
+                          for x, o in ((ss, so), (ms, mo)))
+        cost_d = abs(cost_m - cost_s) / cost_s
+        tables = torch.equal(mo, so) and all(torch.equal(a, b) for a, b in zip(mt, st))
+        repeats = (torch.equal(ms.kf_pose, rs.kf_pose)
+                   and torch.equal(ms.pt_pos, rs.pt_pos) and torch.equal(mo, ro))
+        timing = ""
+        if label == "local points":
+            ms_single = event_ms(lambda: local_ba.bundle_adjust(
+                m, s.K_dev, cam_opt, pt_opt, **kw))
+            ms_mesh = event_ms(lambda: local_ba.bundle_adjust(
+                m, s.K_dev, cam_opt, pt_opt, mesh=mesh, **kw))
+            per_it = lambda ms, its: ms / sum(its[0])
+            timing = (f"; CUDA events: one device {ms_single:.3f} ms, mesh "
+                      f"{ms_mesh:.3f} ms ({ms_mesh / ms_single:.2f}x); per LM "
+                      f"iteration {per_it(ms_single, si):.3f} / "
+                      f"{per_it(ms_mesh, mi):.3f} ms "
+                      f"({per_it(ms_mesh, mi) / per_it(ms_single, si):.2f}x)")
+        print(f"mesh BA, {label} ({int(cam_opt.sum())} cameras, {int(pt_opt.sum())} "
+              f"points; Kl {cfg.max_ba_cams}, Pl {cfg.max_ba_points}, OBS_CAP "
+              f"{OBS_CAP}) against one device, over the median depth {depth:.3f}: "
+              f"max |d R| {dR:.3g}, |d t| {dt:.3g}, |d point| {seen3_d:.3g} (seen by "
+              f">= 3 keyframes), {all_d:.3g} (all); robust cost over the inlier "
+              f"edges {cost_s:.6g} / {cost_m:.6g} (relative {cost_d:.3g}); outlier and "
+              f"observation tables {'equal' if tables else 'DIFFERENT'}; LM "
+              f"iterations {si} / {mi}; {len(reductions)} reductions over "
+              f"{sorted(set(reductions))} shards; the mesh run repeated "
+              f"{'bit for bit' if repeats else 'DIFFERENTLY'}{timing}; {card}")
+        if not (max(dR, dt) <= MESH_BA_POSE and seen3_d <= MESH_BA_POINT
+                and all_d <= WEAK_POINT_DIFF and cost_d <= MESH_BA_COST):
+            failures.append(f"mesh BA, {label}: poses {dR} / {dt}, points {seen3_d}"
+                            f" / {all_d}, cost {cost_d}")
+        if not tables:
+            failures.append(f"mesh BA, {label}: outlier or observation table differs")
+        if not repeats:
+            failures.append(f"mesh BA, {label}: a second run gave other bits")
+        # 2 LM phases: per iteration 3 reductions of the solve and 2 of the
+        # costs, over every shard in the mesh runs
+        if (set(reductions) != {1, len(devices)}
+                or reductions.count(len(devices)) < 5):
+            failures.append(f"mesh BA, {label}: reductions {reductions}")
+
+    # one keyframe integration from phase 9's saved state, mesh against one
+    # device, in turns
+    snap = mapped["snap"]
+    frame, obs, n_in, pose = mapped["args"]
+    mesh_snap = dict(snap, cfg=dataclasses.replace(snap["cfg"], mesh=mesh))
+    out = {}
+    for name in ("single", "mesh", "mesh", "single"):
+        sys_, dt = integrate_from(mesh_snap if name == "mesh" else snap, frame, obs,
+                                  n_in, pose, dev)
+        out.setdefault(name, []).append((sys_, dt))
+    a, b = out["single"][0][0], out["mesh"][0][0]
+    n_obs = observation_table(a.map)[2].sum(1)
+    depth = median_depth(a.map, a.last_kf_slot)
+    dR, dt, seen3_d, all_d, flips, obs_d = ba_difference(b.map, a.map, n_obs, depth)
+    same = torch.equal(out["mesh"][1][0].map.pt_pos, b.map.pt_pos)
+    print(f"mesh integration of keyframe {CHECK_KEYFRAME} from phase 9's saved state "
+          f"against one device, over the median depth {depth:.3f}: max |d R| "
+          f"{dR:.3g}, |d t| {dt:.3g}, |d point| {seen3_d:.3g} (seen by >= 3 "
+          f"keyframes), {all_d:.3g} (all), validity "
+          f"flips {flips}, kf_obs differing {obs_d:.5f}; keyframes {a.kf_counter} / "
+          f"{b.kf_counter}; the two mesh runs {'bit-equal' if same else 'DIFFERENT'}; "
+          f"host ms, single {[round(dt * 1e3, 1) for _, dt in out['single']]}, mesh "
+          f"{[round(dt * 1e3, 1) for _, dt in out['mesh']]}; {card}")
+    if not (max(dR, dt) <= MESH_INTEGRATION_POSE and seen3_d <= MESH_INTEGRATION_POINT
+            and all_d <= WEAK_POINT_DIFF and flips <= 2 and obs_d < 0.005
+            and a.kf_counter == b.kf_counter and same):
+        failures.append("mesh integration: outside test_parallel.py's bounds")
+
+    # the mapping path in mesh mode: the same integration, then the next
+    # frames one per chunk through process_batch, every BA on the mesh
+    frames, poses = mapped["frames"], mapped["poses"]
+    first = frame.frame_id + 1
+    imgs = frames[first:first + MESH_FRAMES]
+    r, fr = restore(mesh_snap, frame, dev)
+    if r.cfg.mesh is not mesh:
+        raise AssertionError("mesh mode: the restored system lost its mesh")
+    reductions.clear()
+    local_ba.psum = counted_psum
+    try:
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        t = time.perf_counter()
+        r._integrate_keyframe(fr, obs.to(dev), n_in, pose=pose)
+        outs = r.process_batch(imgs, chunk_size=1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        launches = {name: k.launches for name, k in kernels.items()}
+    finally:
+        local_ba.psum = plain_psum
+    ate, _, length, fid = keyframe_ate(r, poses)
+    n_kf = r.kf_counter - b.kf_counter + 1
+    finite = (all(p is not None and np.isfinite(p).all() for p in outs)
+              and bool(torch.isfinite(r.map.kf_pose[r.map.kf_valid]).all())
+              and bool(torch.isfinite(r.map.pt_pos[r.map.pt_valid]).all()))
+    print(f"mesh mode mapping path: keyframe {CHECK_KEYFRAME}'s integration then "
+          f"frames {first}-{first + len(imgs) - 1} one per chunk: {len(outs)} "
+          f"tracked, {n_kf} keyframes integrated on the mesh ({len(r.ba_iterations)}"
+          f" BA calls, {reductions.count(len(devices))} reductions over "
+          f"{len(devices)} shards), keyframe ATE {ate:.5f} on a {length:.4f} m path "
+          f"({ate / length:.5f} of it), {dt * 1e3 / len(imgs):.1f} ms/frame with the "
+          f"integration; launches {launches}; {card}")
+    if len(outs) != len(imgs) or not finite or not ate <= MAX_ATE_SHARE * length:
+        failures.append(f"mesh mode mapping path: {len(outs)} frames, ATE {ate}")
+    if (launches["K1"] != len(imgs) or launches["K2"] < len(imgs)
+            or launches["K3"] or launches["K4"]):
+        failures.append(f"mesh mode mapping path: launches {launches}")
+    if n_kf < 2 or reductions.count(len(devices)) < 5 * n_kf:
+        failures.append(f"mesh mode mapping path: {n_kf} keyframes, reductions "
+                        f"{reductions}")
+
+    # sharded matching and RANSAC against their one-device answers
+    g = torch.Generator(device=dev).manual_seed(18)
+    words = lambda n: torch.randint(-2**31, 2**31 - 1, (n, 8), generator=g,
+                                    device=dev, dtype=torch.int32)
+    desc_p, desc_f = words(MESH_MATCH_ROWS), words(MESH_MATCH_COLS)
+    best, dist = sharded_hamming_argmin(grid)(desc_p, desc_f)
+    D = hamming_matrix(desc_p, desc_f)
+    want_best = D.argmin(1)
+    scores = torch.randint(0, 200, (MESH_HYPOTHESES,), generator=g, device=dev
+                           ).to(torch.float32)
+    s_best, i_best = sharded_ransac_best(grid)(scores)
+    match_ok = (torch.equal(best.long(), want_best)
+                and torch.equal(dist, D.gather(1, want_best[:, None])[:, 0]))
+    ransac_ok = (float(s_best) == float(scores.max())
+                 and int(i_best) == int(scores.argmax()))
+    print(f"sharded_hamming_argmin [{MESH_MATCH_ROWS},8]x[{MESH_MATCH_COLS},8] on "
+          f"{grid.shape}: {'equal to' if match_ok else 'DIFFERENT from'} one device; "
+          f"sharded_ransac_best over {MESH_HYPOTHESES} hypotheses "
+          f"({int((scores == scores.max()).sum())} at the maximum): "
+          f"{'equal' if ransac_ok else 'DIFFERENT'}")
+    if not (match_ok and ransac_ok):
+        failures.append("sharded matching or RANSAC differs from one device")
+    if failures:
+        raise AssertionError("mesh mode: " + "; ".join(failures))
     return launches
 
 
@@ -1779,37 +2080,54 @@ def cli_phase(dev, card, kernels):
         write_tum(gt, [(i, -T[:3, :3].T @ T[:3, 3],
                         rot_to_quat(torch.from_numpy(T[:3, :3].T.copy())).numpy())
                        for i, T in enumerate(np.asarray(poses, np.float64))])
-        traj = os.path.join(tmp, "traj.txt")
-        err, out = io.StringIO(), io.StringIO()
-        ORBExtractor.forward = counted
-        torch.cuda.synchronize()
-        for k in kernels.values():
-            k.launches = 0
-        try:
-            with contextlib.redirect_stderr(err):
-                cli.main(["run", settings, frames, "--chunk", "8", "--async",
-                          "--out", traj])
-        finally:
-            ORBExtractor.forward = forward
+
+        def run(traj, *extra):
+            """`run` on the frames; returns its [final] line, trajectory rows,
+            launches and extractions."""
+            err = io.StringIO()
+            extractions[0] = 0
+            ORBExtractor.forward = counted
             torch.cuda.synchronize()
-        launches = {name: k.launches for name, k in kernels.items()}
-        rows = np.loadtxt(traj, ndmin=2)
+            for k in kernels.values():
+                k.launches = 0
+            try:
+                with contextlib.redirect_stderr(err):
+                    cli.main(["run", settings, frames, "--chunk", "8", "--async",
+                              *extra, "--out", traj])
+            finally:
+                ORBExtractor.forward = forward
+                torch.cuda.synchronize()
+            launches = {name: k.launches for name, k in kernels.items()}
+            final = next((l for l in err.getvalue().splitlines()
+                          if l.startswith("[final]")), "")
+            return final, np.loadtxt(traj, ndmin=2), launches, extractions[0]
+
+        traj = os.path.join(tmp, "traj.txt")
+        final, rows, launches, n_ext = run(traj, "--pace", str(CLI_PACE))
+        out = io.StringIO()
         with contextlib.redirect_stdout(out):
             cli.main(["eval", traj, gt])
-    final = next((l for l in err.getvalue().splitlines() if l.startswith("[final]")), "")
-    result = json.loads(out.getvalue().strip().splitlines()[-1])
-    print(f"CLI: run {CLI_FRAMES} PGM frames 640x480 (the mapping scene and "
-          f"trajectory), FAST, 1000 features, 8 levels, --chunk 8 --async: {final!r}; "
-          f"{len(rows)} keyframes in the trajectory; eval {result}, ATE "
-          f"{result['ate_rmse'] / length:.5f} of the {length:.3f} m path; "
-          f"{extractions[0]} extractions; launches {launches}; {card}")
-    if len(rows) < MIN_KEYFRAMES:
-        raise AssertionError(f"CLI: {len(rows)} keyframes in the trajectory")
-    if not result["ate_rmse"] <= MAX_ATE_SHARE * length:
-        raise AssertionError(f"CLI: ATE {result['ate_rmse']:.5f} over "
-                             f"{MAX_ATE_SHARE} of the {length:.3f} m path")
-    if launches["K1"] != extractions[0] or extractions[0] < CLI_FRAMES:
-        raise AssertionError(f"CLI: launches {launches}, {extractions[0]} extractions")
+        result = json.loads(out.getvalue().strip().splitlines()[-1])
+        print(f"CLI: run {CLI_FRAMES} PGM frames 640x480 (the mapping scene and "
+              f"trajectory), FAST, 1000 features, 8 levels, --chunk 8 --async "
+              f"--pace {CLI_PACE}: {final!r}; {len(rows)} keyframes in the "
+              f"trajectory; eval {result}, ATE {result['ate_rmse'] / length:.5f} "
+              f"of the {length:.3f} m path; {n_ext} extractions; launches "
+              f"{launches}; {card}")
+        if len(rows) < MIN_KEYFRAMES:
+            raise AssertionError(f"CLI: {len(rows)} keyframes in the trajectory")
+        if not result["ate_rmse"] <= MAX_ATE_SHARE * length:
+            raise AssertionError(f"CLI: ATE {result['ate_rmse']:.5f} over "
+                                 f"{MAX_ATE_SHARE} of the {length:.3f} m path")
+        if launches["K1"] != n_ext or n_ext < CLI_FRAMES:
+            raise AssertionError(f"CLI: launches {launches}, {n_ext} extractions")
+        u_final, u_rows, u_launches, u_ext = run(os.path.join(tmp, "unpaced.txt"))
+        print(f"CLI unpaced (ROADMAP C17's reading, not gated): {u_final!r}; "
+              f"{len(u_rows)} keyframes in the trajectory; {u_ext} extractions; "
+              f"launches {u_launches}; {card}")
+        if u_launches["K1"] != u_ext or u_ext < CLI_FRAMES:
+            raise AssertionError(f"CLI unpaced: launches {u_launches}, "
+                                 f"{u_ext} extractions")
     return launches
 
 
@@ -1880,6 +2198,11 @@ def main():
     extractor = ORBExtractor(ORBConfig(), H, W, device=dev)
     camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy, width=W, height=H)
     K = torch.from_numpy(scene.K).to(dev)
+    if sys.argv[1:] == ["--mesh"]:
+        # phases 9 and 18 alone, for a machine with several cards
+        _, mapped = mapping_path(dev, card, kernels, scene)
+        mesh_phase(dev, card, kernels, mapped, mesh_devices())
+        return 0
 
     # -- kernel vs plain at main-path shapes
     canvas = build_pyramid_stack(frames[0], extractor.Rp, extractor.Cp)
@@ -2045,7 +2368,9 @@ def main():
               f"median {dt * 1e3 / N_FRAMES:.3f} ms/frame = "
               f"{N_FRAMES / dt:.2f} frames/s")
 
-    mapping_path(dev, card, kernels, scene)
+    _, mapped = mapping_path(dev, card, kernels, scene)
+    mesh_launches = mesh_phase(dev, card, kernels, mapped, mesh_devices())
+    del mapped
     init_launches, two_view_args = init_path(dev, card, kernels, scene)
     two_view_phases(two_view_args, card)
     reloc_launches, reloc_sys, ok_call, epnp_inputs = reloc_phase(dev, card, kernels,
@@ -2081,6 +2406,7 @@ def main():
          "loop_path_launches": loop_launches[k],
          "async_path_launches": async_launches[k],
          "cli_path_launches": cli_launches[k],
+         "mesh_path_launches": mesh_launches[k],
          **({"chain_floor_ms": k2_floor_ms} if k == "K2" else {})}
         for k, (name, source, replaces) in meta.items()]}))
     print(f"device: {card}")

@@ -6,8 +6,14 @@ without ROS: a dataset path (an image directory or a video) replaces the
 image topic, and the keyframe trajectory is written at shutdown
 (KeyFrameTrajectory.txt, main.cc:160-185). `run` takes JAX's flags
 through the port's io/settings.py, io/dataset.py, SLAMSystem or (with
-`--async`) AsyncSLAMSystem and io/trajectory.py, and one more, `--device`
-(default `cuda`): without a card, only `--device cpu` runs. TF32 is off,
+`--async`) AsyncSLAMSystem and io/trajectory.py, and two more: `--device`
+(default `cuda`): without a card, only `--device cpu` runs; and `--pace
+SECONDS`, which hands the frames over as a camera sending one every
+SECONDS would, as the reference's examples pace a sequence by sleeping
+until the next frame's timestamp (Examples/Monocular/mono_tum.cc); by
+default, as in JAX's CLI, the frames go in as fast as the system takes
+them, and with `--async` such a caller can outrun local mapping and lose
+the camera (ROADMAP C17). TF32 is off,
 as in chip_smoke.py, so the card's matrix products keep f32 precision.
 The `[final]` line names the device where JAX names its backend.
 
@@ -102,7 +108,11 @@ def cmd_run(args):
 def _run_frames(args, system, state_names, ds):
     """Feed the dataset to the system: chunks of `args.chunk` frames
     through process_batch, or one frame at a time through process at
-    chunk 1. Returns (frames fed, the start on the host clock)."""
+    chunk 1. With `args.pace` > 0, frame i arrives `i * args.pace` seconds
+    after the first: the caller waits for each frame to arrive, and hands
+    over every frame that has arrived, at most a chunk, before it waits
+    (profile_paths.PacedFeed's rule). Returns (frames fed, the start on
+    the host clock)."""
 
     def _frame_path(viz_out):
         import os
@@ -124,6 +134,15 @@ def _run_frames(args, system, state_names, ds):
         draw_live_frame(system, img, _frame_path(args.viz_out))
 
     n, t0 = 0, time.perf_counter()
+
+    def _arrived(i, before_wait=lambda: None):
+        """Wait for frame i to arrive; `before_wait` runs first if it has
+        not arrived yet."""
+        due = t0 + i * args.pace
+        if args.pace > 0 and time.perf_counter() < due:
+            before_wait()
+            time.sleep(max(0.0, due - time.perf_counter()))
+
     if args.chunk > 1:
         # buffered chunks: one extract-and-track chunk per process_batch
         # call (SLAMSystem.process_batch)
@@ -144,7 +163,8 @@ def _run_frames(args, system, state_names, ds):
                     1, args.viz_every // args.chunk) == 0:
                 _viz(last_img)
 
-        for ts, img in ds:
+        for i, (ts, img) in enumerate(ds):
+            _arrived(i, _drain)
             buf_img.append(img)
             buf_ts.append(ts)
             if len(buf_img) >= args.chunk:
@@ -153,7 +173,8 @@ def _run_frames(args, system, state_names, ds):
                 break
         _drain()
     else:
-        for ts, img in ds:
+        for i, (ts, img) in enumerate(ds):
+            _arrived(i)
             system.process(img=img, timestamp=ts)
             n += 1
             if n % 30 == 0:
@@ -207,6 +228,9 @@ def main(argv=None):
     r.add_argument("--chunk", type=int, default=16,
                    help="frames per extract-and-track chunk (1 = one frame "
                         "at a time through process)")
+    r.add_argument("--pace", type=float, default=0.0,
+                   help="seconds between frames: hand them over as a camera "
+                        "would (0: as fast as the system takes them)")
     r.add_argument("--async", dest="use_async", action="store_true",
                    help="run LocalMapping + LoopClosing on background "
                         "threads (the reference's 3-thread layout)")

@@ -42,7 +42,12 @@ on every tensor that crosses threads, and a profile to show it pays. The
 same order means that the tracker's host reads (`_apply_chunk` copies
 four tensors to the host after each chunk) wait for all device work the
 mapper and loop threads queued before them; the interpreter lock is the
-other shared resource.
+other shared resource. With `SlamConfig.mesh` set, the mapper's BA also
+queues work on the mesh's other devices, each on its default stream. Only
+the mapper thread touches them, inside `bundle_adjust`, and PyTorch
+orders a copy between two cards after the work queued on both devices'
+streams, so the rule holds on each device and the shards are back on the
+system's card before the mapper publishes a snapshot.
 
 Keeping up. The tracker is not throttled: it takes frames as fast as the
 caller gives them, and a keyframe is admitted only while the mapper is

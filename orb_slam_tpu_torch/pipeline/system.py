@@ -26,7 +26,15 @@ loop closer (pipeline/loop_closing.py) are built once the initial map
 exists, from the shipped vocabulary; while the loop closer is set, each
 integrated keyframe goes through `LoopCloser.process`, whose detection
 adds its BoW to the database, else the keyframe takes the database's BoW
-add. Not ported yet: the sharded BA (`mesh`). The RANSAC draws of the
+add. `SlamConfig.mesh` (:103-105), a `parallel.Mesh`, shards every
+bundle adjustment of the system over the mesh's devices, as JAX passes it
+to each `bundle_adjust` (:639, :1137, :1148): the initial two-view BA of
+`_try_initialize` and both local-BA phases of `_local_mapping`. The map,
+the tracker and every other stage stay on the system's device; only BA's
+point arrays go out to the shards, and the new points, poses and outlier
+table come back before `bundle_adjust` returns (solvers/local_ba.py).
+`max_ba_points` stays a multiple of 256 (:159), so a `data` axis of 2, 4
+or 8 divides it. The RANSAC draws of the
 initialisation, the relocalisation and the loop closer come from
 `torch.Generator`s seeded with `cfg.seed` on the system's device: they
 cannot repeat `jax.random`'s, and the parity tests replace
@@ -136,7 +144,7 @@ class SlamConfig:
     use_motion_model: bool = True
     track_local_map: bool = True
     track_chunk_size: int = 8
-    mesh: object = None
+    mesh: object = None          # a parallel.Mesh: every BA shards over it
     max_ba_cams: int = 80
     max_ba_points: int = 2048
     mapper_latency_frames: int = 0
@@ -157,6 +165,7 @@ class SlamConfig:
                                scale_factor=self.orb.scale_factor)
         self.p_local = min(self.p_local, self.map.max_points)
         self.max_ba_cams = min(self.max_ba_cams, self.map.max_keyframes)
+        # a multiple of 256, so the sharded BA divides a small `data` axis
         if self.max_ba_points:
             self.max_ba_points = min(
                 max(256, (self.max_ba_points // 256) * 256),

@@ -1059,10 +1059,10 @@ def ba_stage_split(dev, P, O=32, Kl=80, reps=5):
         return S
 
     L = b2()[5]
-    H, b, C = b3()
+    Hcc, S, b, C = b3()
     D = torch.einsum("poxy,pyz->poxz", C, L)
     d = torch.arange(Kl, device=dev)
-    Hs = H[:Kl, :Kl].clone()
+    Hs = ba._reduced_system(Hcc, S)[:Kl, :Kl]
     Hs[d, d] += damping * torch.eye(6, device=dev)
     return {
         "B1 edge terms": _event_ms(b1, reps),

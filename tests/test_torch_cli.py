@@ -3,7 +3,8 @@ event log and stage timer, on the CPU (`--device cpu`); tests/test_cli.py
 and tests/test_aux.py on the port.
 
 `run` then `eval` on 12 rendered 320x240 frames, and `run --async --chunk
-4` on the same frames written as binary PGM. `eval` on the same two TUM
+4` on the same frames written as binary PGM, and `--pace`'s hand-over
+rule on a stand-in system. `eval` on the same two TUM
 files prints the JAX CLI's JSON, each number within 1e-6 (the Sim3
 alignment is f32 in both). `draw_frame` is bit-equal to JAX's on the same
 inputs; the numpy PGM reader equals PIL's decode of the same file.
@@ -98,6 +99,49 @@ def test_run_async_chunked(tmp_path, capsys):
     assert "[final] frames=12 " in err and "device=cpu" in err
     rows = np.loadtxt(str(out))
     assert rows.shape[0] >= 2 and rows.shape[1] == 8
+
+
+class _Recorder:
+    """A stand-in system for `cli._run_frames`: records each call's frames
+    and its start on the host clock, and takes `busy` seconds a call."""
+
+    state, n_keyframes, n_points, n_loops_closed = 2, 0, 0, 0
+
+    def __init__(self, busy):
+        self.busy, self.calls = busy, []
+
+    def process_batch(self, imgs, timestamps=None, chunk_size=None):
+        import time
+        self.calls.append((time.perf_counter(), list(imgs)))
+        time.sleep(self.busy)
+
+    def process(self, img, timestamp=None):
+        self.process_batch([img])
+
+
+@pytest.mark.parametrize("chunk, busy, sizes", [
+    (4, 0.0, [1] * 6),             # ahead of the camera: one frame a call
+    (4, 0.31, [1, 3, 2]),          # behind: every frame that has arrived
+    (2, 0.31, [1, 2, 2, 1]),       # behind: at most a chunk
+    (1, 0.0, [1] * 6),             # one frame at a time through process
+])
+def test_pace_hands_over_frames_as_they_arrive(chunk, busy, sizes, capsys):
+    """`run --pace P`: frame i arrives i * P after the first; the caller
+    waits for it and first hands over every frame that has arrived, at
+    most a chunk (profile_paths.PacedFeed's rule), in order."""
+    import argparse
+    import time
+    pace = 0.1
+    args = argparse.Namespace(chunk=chunk, pace=pace, viz_every=0,
+                              max_frames=0, viz_out=None)
+    system = _Recorder(busy)
+    frames = [(i / 30.0, i) for i in range(6)]
+    n, t0 = cli._run_frames(args, system, ["?", "?", "OK"], iter(frames))
+    assert n == 6
+    assert [len(f) for _, f in system.calls] == sizes
+    assert [i for _, f in system.calls for i in f] == list(range(6))
+    for start, f in system.calls:      # no frame goes in before it arrives
+        assert start >= t0 + f[-1] * pace - 1e-3
 
 
 def test_eval_matches_jax(tmp_path):

@@ -34,6 +34,7 @@ import torch
 
 from orb_slam_tpu.solvers import local_ba as jba
 from orb_slam_tpu_torch.convert import map_state_from_numpy
+from orb_slam_tpu_torch.parallel import make_mesh
 from orb_slam_tpu_torch.solvers import local_ba as tba
 from tests.test_system_vo import run_sequence
 
@@ -183,8 +184,15 @@ def test_apply_edge_outliers(problem, kill_starved):
     assert (got.kf_obs.numpy() != t.kf_obs.numpy()).any()
 
 
-def test_mesh_is_refused(problem):
+@pytest.mark.parametrize("Pl", [None, 256])
+def test_mesh_needs_divisible_point_space(problem, Pl):
+    """A mesh whose `data` axis does not divide the point space raises
+    JAX's ValueError (local_ba.py:603-608) before any work."""
     _, t, cam_opt, _ = problem
-    with pytest.raises(NotImplementedError):
+    mesh = make_mesh(devices=["cpu"] * 3)
+    assert mesh.shape == {"data": 3, "model": 1}
+    P = Pl or t.pt_valid.shape[0]
+    with pytest.raises(ValueError, match=rf"point space {P} must divide the mesh "
+                                         r"'data' axis \(3\)"):
         tba.bundle_adjust(t, torch.from_numpy(KM), torch.from_numpy(cam_opt),
-                          t.pt_valid, mesh=object())
+                          t.pt_valid, mesh=mesh, max_opt_pts=Pl)
