@@ -7,8 +7,10 @@ cell-fused detector; then the mapping path from a seeded map and the
 whole system from raw frames through its own two-view initialisation,
 that system lost in a blackout and relocalised against its keyframe
 database, that system closing a drifted loop, the same frames with the
-mapper and loop threads live, the command line, and the mapping path with
-its bundle adjustment sharded over a mesh of devices.
+mapper and loop threads live, the command line, the mapping path with
+its bundle adjustment sharded over a mesh of devices, the port of the
+repo's demo (examples/run_synthetic_torch.py), and the system on a map
+small enough that both slot pools fill and recycle.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh    # phases 1, 2, 9 and 18 alone
@@ -218,6 +220,33 @@ Phases (any failure raises and the exit code is non-zero):
      never. sharded_hamming_argmin at [4096, 8] x [1000, 8] and
      sharded_ransac_best over 300 integer scores (ties at the maximum)
      equal to their one-device answers.
+ 19. example: examples/run_synthetic_torch.py's `main` on the card into a
+     temporary directory (20 frames of a 220-point scene written as PGM
+     at 320x240, read back by ImageDirDataset, 400 features, 4 levels,
+     MapConfig(16, 1024), loop closing and relocalisation off). Checks: >=
+     90% of the 20 frames tracked, >= MIN_EXAMPLE_KEYFRAMES keyframes, the
+     printed ATE (every tracked frame, Sim3-aligned) <= MAX_EXAMPLE_ATE_SHARE
+     of the 1.9 m path, K1 once per extraction, K2 at least once per frame
+     tracked after the initialisation frame, K3 and K4 never;
+ 20. capacity path (profile_paths.capacity_path): the system at the
+     SlamConfig defaults (ORBConfig(), chunk 8, relocalisation on with the
+     shipped vocabulary, loop closing off) on MapConfig(CAPACITY_KEYFRAMES
+     = 16, CAPACITY_POINTS = 512) from raw 640x480 frames of the loop
+     scene, CAPACITY_LEGS = 6 sideways legs of CAPACITY_SWEEP = 30 frames
+     out and back (175 frames), under profile_paths.SlotRecord. Checks
+     (profile_paths.capacity_failures): more point slots written than the
+     pool holds, a keyframe decision refused with free_kf empty, a
+     keyframe culled and every culled slot taken by a later keyframe,
+     free_pt exactly the invalid point slots once each, free_kf no live
+     keyframe, every pt_forward entry -1 or a slot with each live point
+     its own, the live keyframes' spanning tree acyclic with one root, >=
+     90% of the frames after the first tracked one tracked, WORKING at the
+     end, the keyframe ATE <= 2% of the path; K1 once per extraction, K2
+     at least once per frame tracked after the initialisation frame, K3
+     and K4 never, all outputs finite. Prints the slots written and
+     recycled, the keyframes culled (with the pool full or not), the
+     frames at capacity, ms/frame and ms per integration before capacity
+     and at it (an integration that takes the pool's last free slot).
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last three lines are the kernel table as JSON (launches from
 the path that runs the kernel: K1 and K2 the FAST path, K3 the Harris
@@ -225,8 +254,9 @@ path, K4 the cell-fused run; `init_path_launches` those of phase 10,
 `reloc_path_launches` those of phase 12's checked run,
 `loop_path_launches` those of phase 14's, `async_path_launches` those
 of phase 16's, `cli_path_launches` those of phase 17's paced `run`,
-`mesh_path_launches` those of phase 18's mesh-mode mapping run;
-`minmax_floor_ms` for the stencil kernels),
+`mesh_path_launches` those of phase 18's mesh-mode mapping run,
+`example_path_launches` those of phase 19, `capacity_path_launches`
+those of phase 20; `minmax_floor_ms` for the stencil kernels),
 the card's name and power limit, and
 {"ok": true, "device": ...}.
 """
@@ -354,6 +384,17 @@ ASYNC_LOOP_GATED = True
 # call and 5 in another (PERF.md, PR 10)
 CLI_FRAMES = 64
 CLI_PACE = 0.5
+# the example phase (phase 19): examples/run_synthetic_torch.py's 20
+# frames; the keyframes it must reach, and its ATE (over every tracked
+# frame, after a Sim3 alignment) over the 1.9 m path. The ATE of these 20
+# frames at 320x240 jumps with the last bit of a pixel: the JAX package on
+# the CPU reads 2.31% of the path on the example's frames (pixels
+# truncated, as PIL saves them) and 5.39% on the same frames rounded; the
+# port 2.85-4.09% on the CPU and 4.33% on the card (ROADMAP C19). So the
+# bound is above both packages' readings, not the 2% of the longer paths
+EXAMPLE_FRAMES = 20
+MIN_EXAMPLE_KEYFRAMES = 3
+MAX_EXAMPLE_ATE_SHARE = 0.06
 
 
 def card_lines() -> list:
@@ -2047,7 +2088,6 @@ def cli_phase(dev, card, kernels):
     """Phase 17 (module docstring). Returns the K1..K4 launches of `run`."""
     from orb_slam_tpu_torch import cli
     from orb_slam_tpu_torch.frontend.orb_extractor import ORBConfig, ORBExtractor
-    from orb_slam_tpu_torch.geometry.camera import CameraModel
     from orb_slam_tpu_torch.geometry.so3 import rot_to_quat
     from orb_slam_tpu_torch.io.dataset import write_pgm
     from orb_slam_tpu_torch.io.settings import settings_text
@@ -2058,7 +2098,7 @@ def cli_phase(dev, card, kernels):
     W, H = 640, 480
     scene = SyntheticScene(n_points=800, width=W, height=H)
     poses = lateral_trajectory(CLI_FRAMES, step=MAPPING_STEP, yaw_rate=MAPPING_YAW)
-    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy, width=W, height=H)
+    camera = scene.camera_model()
     centers = camera_centers_from_cw(np.asarray(poses, np.float64))
     length = float(np.linalg.norm(np.diff(centers, axis=0), axis=1).sum())
     forward = ORBExtractor.forward
@@ -2131,6 +2171,125 @@ def cli_phase(dev, card, kernels):
     return launches
 
 
+def example_phase(dev, card, kernels):
+    """Phase 19 (module docstring). Returns the K1..K4 launches of the run."""
+    import importlib.util
+
+    from orb_slam_tpu_torch.frontend.orb_extractor import ORBExtractor
+    from orb_slam_tpu_torch.io.synthetic import lateral_trajectory
+    from orb_slam_tpu_torch.io.trajectory import camera_centers_from_cw
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        "run_synthetic_torch.py")
+    spec = importlib.util.spec_from_file_location("run_synthetic_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    gt = camera_centers_from_cw(lateral_trajectory(EXAMPLE_FRAMES, step=0.1))
+    length = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    forward = ORBExtractor.forward
+    extractions = [0]
+
+    def counted(self, img):
+        extractions[0] += 1
+        return forward(self, img)
+
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        ORBExtractor.forward = counted
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                summary = example.main(tmp, device=str(dev))
+        finally:
+            ORBExtractor.forward = forward
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        launches = {name: k.launches for name, k in kernels.items()}
+    text = out.getvalue()
+    printed = json.loads(text[text.rindex("\n{") + 1:])
+    ate, tracked = printed["ate_rmse"], printed["frames_tracked"]
+    print(f"example: examples/run_synthetic_torch.py on {dev} ({EXAMPLE_FRAMES} PGM "
+          f"frames 320x240, 400 features, 4 levels, MapConfig(16, 1024)): "
+          f"{tracked} frames tracked, {printed['keyframes']} keyframes, "
+          f"{printed['map_points']} points, ATE {ate} on the {length:.3f} m path "
+          f"({ate / length:.5f} of it), map plot {printed['map_plot']}; "
+          f"{extractions[0]} extractions; launches {launches}; {run_s:.2f} s; {card}")
+    if printed != summary:
+        raise AssertionError(f"example: printed {printed}, returned {summary}")
+    if tracked < MIN_TRACKED_SHARE * EXAMPLE_FRAMES:
+        raise AssertionError(f"example: {tracked} of {EXAMPLE_FRAMES} frames tracked")
+    if printed["keyframes"] < MIN_EXAMPLE_KEYFRAMES:
+        raise AssertionError(f"example: {printed['keyframes']} keyframes")
+    if not ate <= MAX_EXAMPLE_ATE_SHARE * length:
+        raise AssertionError(f"example: ATE {ate} over {MAX_EXAMPLE_ATE_SHARE} of "
+                             f"the {length:.3f} m path")
+    # K1 once in every extraction, K2 at least once per frame tracked after
+    # the initialisation frame (whose pose the two-view solver gives)
+    if (launches["K1"] != extractions[0] or extractions[0] < EXAMPLE_FRAMES
+            or launches["K2"] < tracked - 1 or launches["K3"] or launches["K4"]):
+        raise AssertionError(f"example: launches {launches}, {extractions[0]} "
+                             f"extractions, {tracked} frames tracked")
+    return launches
+
+
+def capacity_phase(dev, card, kernels):
+    """Phase 20 (module docstring). Returns the K1..K4 launches of the run."""
+    from orb_slam_tpu_torch.profile_paths import (
+        capacity_failures, capacity_path, capacity_summary, capacity_system,
+        loop_scene,
+    )
+
+    scene = loop_scene()
+    s = capacity_system(scene, dev)
+    extractions = counting_extractions((s.extractor, s.extractor_init))
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    r = capacity_path(scene, dev, system=s)
+    launches = {name: k.launches for name, k in kernels.items()}
+    rec = r["record"]
+    full = [c for c in rec.culls if c[2]]
+    before = [ms for ms, f in rec.integrations if not f]
+    at = [ms for ms, f in rec.integrations if f]
+    first = next((i for i, p in enumerate(r["out"]) if p is not None), 0)
+    tracked = sum(p is not None for p in r["out"][first + 1:])
+    m = s.map
+    finite = (all(np.isfinite(p).all() for p in r["out"] if p is not None)
+              and bool(torch.isfinite(m.kf_pose[m.kf_valid]).all())
+              and bool(torch.isfinite(m.pt_pos[m.pt_valid]).all()))
+    med = lambda v: f"{statistics.median(v):.3f}" if v else "none"
+    print(f"capacity path: {capacity_summary(r)}; {extractions[0]} extractions; "
+          f"launches {launches}; {card}")
+    print(f"capacity slots: {len(rec.written)} point slots written into "
+          f"{s.cfg.map.max_points}, {rec.recycled} of them recycled; "
+          f"{s.kf_counter} keyframe slots allocated into "
+          f"{s.cfg.map.max_keyframes}")
+    print(f"capacity culls: {len(rec.culls)} keyframes culled, {len(full)} with "
+          f"the pool full; {len(rec.replaced(rec.culls))} of the slots culled, "
+          f"{len(rec.replaced(full))} of those culled with the pool full, taken "
+          f"by a later keyframe")
+    print(f"capacity frames: {rec.refused_full} frames at capacity (keyframe "
+          f"decisions refused with free_kf empty) of {r['n_frames']}")
+    print(f"capacity timing: {r['seconds'] * 1e3 / r['n_frames']:.3f} ms/frame; ms "
+          f"per integration before capacity {med(before)} (median of "
+          f"{len(before)}), at capacity {med(at)} (median of {len(at)}); {card}")
+    failures = capacity_failures(r)
+    if not finite:
+        failures.append("non-finite output")
+    # K1 once in every extraction, K2 at least once per frame tracked after
+    # the initialisation frame
+    if (launches["K1"] != extractions[0] or extractions[0] < r["n_frames"]
+            or launches["K2"] < tracked or launches["K3"] or launches["K4"]):
+        failures.append(f"launches {launches}, {extractions[0]} extractions, "
+                        f"{tracked} frames tracked after the first")
+    if failures:
+        raise AssertionError(f"capacity path: {failures}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -2142,7 +2301,6 @@ def main():
 
     from orb_slam_tpu_torch import _build
     from orb_slam_tpu_torch.frontend.orb_extractor import ORBConfig, ORBExtractor
-    from orb_slam_tpu_torch.geometry.camera import CameraModel
     from orb_slam_tpu_torch.io.settings import (
         settings_text, slam_config_from_settings,
     )
@@ -2196,7 +2354,7 @@ def main():
     frames = torch.from_numpy(np.stack([scene.render_image(p) for p in poses]))
     frames = frames.to(dev)
     extractor = ORBExtractor(ORBConfig(), H, W, device=dev)
-    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy, width=W, height=H)
+    camera = scene.camera_model()
     K = torch.from_numpy(scene.K).to(dev)
     if sys.argv[1:] == ["--mesh"]:
         # phases 9 and 18 alone, for a machine with several cards
@@ -2380,6 +2538,8 @@ def main():
     loop_timings(dev, card, loop_record)
     async_launches = async_phase(dev, card, kernels, loop_seq)
     cli_launches = cli_phase(dev, card, kernels)
+    example_launches = example_phase(dev, card, kernels)
+    capacity_launches = capacity_phase(dev, card, kernels)
 
     launches = {"K1": fast_launches["K1"], "K2": fast_launches["K2"],
                 "K3": harris_launches["K3"], "K4": cell_launches["K4"]}
@@ -2407,6 +2567,8 @@ def main():
          "async_path_launches": async_launches[k],
          "cli_path_launches": cli_launches[k],
          "mesh_path_launches": mesh_launches[k],
+         "example_path_launches": example_launches[k],
+         "capacity_path_launches": capacity_launches[k],
          **({"chain_floor_ms": k2_floor_ms} if k == "K2" else {})}
         for k, (name, source, replaces) in meta.items()]}))
     print(f"device: {card}")

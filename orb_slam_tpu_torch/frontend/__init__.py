@@ -1,1 +1,4 @@
-"""Feature extraction front end (orb_slam_tpu/frontend/)."""
+"""Feature extraction front end (port of orb_slam_tpu/frontend/, whose
+`__init__.py`:3 re-exports these names)."""
+
+from orb_slam_tpu_torch.frontend.orb_extractor import ORBExtractor, ORBFeatures

@@ -4,11 +4,11 @@ Port of orb_slam_tpu/io/dataset.py:17-109 (`ImageDirDataset`,
 `VideoDataset`, `PrefetchIterator`, `_load_gray`, `open_dataset`),
 copied: it replaces the reference's ROS image subscription
 (src/Tracking.cc:160-166) with a host-side reader thread that decodes
-frames ahead of the device. `_load_gray` keeps JAX's order, cv2 first,
-then PIL, and last reads binary 8-bit PGM (`P5`) with numpy
-(`read_pgm`), so that a machine with neither library still reads a PGM
-directory; `write_pgm` writes one. Any other format without either
-library raises, naming both.
+frames ahead of the device. `_load_gray` reads binary 8-bit PGM (`P5`)
+with numpy (`read_pgm`, the same pixels as cv2 and PIL), so that a PGM
+directory needs neither library; `write_pgm` writes one. Any other file
+goes, as in JAX, to cv2 first, then PIL, and without either it raises,
+naming both.
 """
 
 from __future__ import annotations
@@ -128,6 +128,11 @@ def write_pgm(path: str, img):
 
 
 def _load_gray(path: str) -> np.ndarray:
+    if path.lower().endswith(".pgm"):
+        try:
+            return read_pgm(path).astype(np.float32)
+        except ValueError:
+            pass  # an ASCII or 16-bit PGM: cv2 or PIL reads it
     try:
         import cv2
 
@@ -139,8 +144,6 @@ def _load_gray(path: str) -> np.ndarray:
     try:
         from PIL import Image
     except ImportError:
-        if path.lower().endswith(".pgm"):
-            return read_pgm(path).astype(np.float32)
         raise ImportError(f"{path}: reading this format needs cv2 (opencv-python) "
                           f"or PIL (pillow); without them only binary PGM is read")
     return np.asarray(Image.open(path).convert("L"), np.float32)

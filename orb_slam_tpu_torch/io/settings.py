@@ -19,8 +19,6 @@ from __future__ import annotations
 
 import re
 
-import numpy as np
-
 from orb_slam_tpu_torch.frontend.orb_extractor import ORBConfig
 from orb_slam_tpu_torch.geometry.camera import CameraModel
 
@@ -77,14 +75,12 @@ def slam_config_from_settings(path: str, width: int = 640, height: int = 480):
     are kept as float32, as the JAX CameraModel stores them."""
     raw = load_settings(path)
     g = lambda k, d: raw.get(k, d)
-    f32 = lambda v: float(np.float32(v))
-    cam = CameraModel(
-        fx=f32(g("Camera.fx", 500.0)), fy=f32(g("Camera.fy", 500.0)),
-        cx=f32(g("Camera.cx", width / 2)), cy=f32(g("Camera.cy", height / 2)),
-        k1=f32(g("Camera.k1", 0.0)), k2=f32(g("Camera.k2", 0.0)),
-        p1=f32(g("Camera.p1", 0.0)), p2=f32(g("Camera.p2", 0.0)),
-        width=int(g("Camera.width", width)),
-        height=int(g("Camera.height", height)),
+    cam = CameraModel.create(
+        fx=g("Camera.fx", 500.0), fy=g("Camera.fy", 500.0),
+        cx=g("Camera.cx", width / 2), cy=g("Camera.cy", height / 2),
+        k1=g("Camera.k1", 0.0), k2=g("Camera.k2", 0.0),
+        p1=g("Camera.p1", 0.0), p2=g("Camera.p2", 0.0),
+        width=g("Camera.width", width), height=g("Camera.height", height),
     )
     orb = ORBConfig(
         n_features=int(g("ORBextractor.nFeatures", 1000)),

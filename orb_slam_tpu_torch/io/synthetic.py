@@ -3,7 +3,7 @@
 Port of orb_slam_tpu/io/synthetic.py: `SyntheticScene` (:21-244: the
 point cloud, with the ring layout of :35-36 and :54-64 drawn in the same
 rng order, so the points are the same bits; `K`, `observe`, the oracle
-features of :100-151, and `render_image`),
+features of :100-151, `camera_model` (:79-85) and `render_image`),
 `ring_trajectory` (:230-252) and `lateral_trajectory` (:257-267),
 without JAX, so a script on a machine without JAX has an image source.
 Added here: `billboard_depth`, the depth of the front-most rendered
@@ -68,6 +68,13 @@ class SyntheticScene:
     def K(self):
         return np.array([[self.fx, 0, self.cx], [0, self.fy, self.cy],
                          [0, 0, 1]], np.float32)
+
+    def camera_model(self) -> CameraModel:
+        """The pipeline's CameraModel of this scene, distortion included."""
+        k1, k2, p1, p2 = self.dist
+        return CameraModel.create(self.fx, self.fy, self.cx, self.cy,
+                                  k1=k1, k2=k2, p1=p1, p2=p2,
+                                  width=self.width, height=self.height)
 
     def _project_px(self, pc):
         """Camera-frame points [N, 3] -> distorted pixel coordinates."""
@@ -256,8 +263,7 @@ def seed_map(scene: SyntheticScene, T_cw, xy, desc_i32, octave, valid,
     T_cw = np.asarray(T_cw, np.float32)
     z = scene.billboard_depth(T_cw, xy)
     keep = valid & np.isfinite(z)
-    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy, *scene.dist,
-                         width=scene.width, height=scene.height)
+    camera = scene.camera_model()
     und = undistort_points(camera, torch.from_numpy(xy)).numpy()
     pc = np.stack([(und[:, 0] - scene.cx) / scene.fx * z,
                    (und[:, 1] - scene.cy) / scene.fy * z, z], 1)[keep]
@@ -316,8 +322,7 @@ def seed_keyframe_map(scene: SyntheticScene, poses, features, K,
     from orb_slam_tpu_torch.slam_map.observations import refresh_point_stats
 
     device = require_device(device)
-    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy, *scene.dist,
-                         width=scene.width, height=scene.height)
+    camera = scene.camera_model()
     host = [{k: np.asarray(torch.as_tensor(getattr(f, k)).cpu())
              for k in ("xy", "desc_i32", "octave", "angle", "valid")}
             for f in features]

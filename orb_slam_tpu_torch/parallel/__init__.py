@@ -9,5 +9,9 @@ bundle adjustment is `solvers/local_ba.bundle_adjust(mesh=...)`, which
 """
 
 from orb_slam_tpu_torch.parallel.mesh import Mesh, make_mesh
+from orb_slam_tpu_torch.parallel.sharding import (
+    sharded_ba_step, sharded_hamming_argmin, sharded_ransac_best,
+)
 
-__all__ = ["Mesh", "make_mesh"]
+__all__ = ["Mesh", "make_mesh", "sharded_ba_step", "sharded_hamming_argmin",
+           "sharded_ransac_best"]

@@ -152,7 +152,7 @@ class SlamConfig:
 
     def __post_init__(self):
         if self.camera is None:
-            self.camera = CameraModel(500.0, 500.0, 320.0, 240.0)
+            self.camera = CameraModel.create(500.0, 500.0, 320.0, 240.0)
         if self.map is None:
             self.map = MapConfig(n_features=self.orb.n_features,
                                  n_levels=self.orb.n_levels,

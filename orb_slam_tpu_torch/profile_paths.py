@@ -3,7 +3,7 @@ extract-and-track paths and the mapping path of chip_smoke.py, timed and
 profiled, and local BA's solver stages.
 
     python -m orb_slam_tpu_torch.profile_paths [--frames 64] [--spread]
-        [--async-periods SECONDS ...]
+        [--async-periods SECONDS ...] [--capacity K,P,SWEEP,LEGS ...]
 
 The scene, map and settings are chip_smoke.py's (640x480, 1000 features,
 8 levels; the tracking paths against an 8192-slot map seeded from frame 0,
@@ -52,6 +52,11 @@ sending one frame every ASYNC_FRAME_PERIOD seconds; `--async-periods`
 runs only that path, once at each pace given. The loop turn
 after the paths' turns (`profile_loop`) profiles the accepted pass per
 stage; `--spread` also runs the loop path per scene seed.
+`capacity_system`, `capacity_poses`, `capacity_path`, `SlotRecord`,
+`slot_failures` and `capacity_failures` are phase 20: the system on a map
+small enough that both slot pools fill, swept over the loop scene, with a
+record of every slot written, allocated and culled; `--capacity` runs only
+that path, once per map size and sweep given.
 """
 
 from __future__ import annotations
@@ -72,7 +77,6 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from orb_slam_tpu_torch.convert import database_from_numpy, loop_closer_from_state
 from orb_slam_tpu_torch.frontend.orb_extractor import ORBConfig, ORBExtractor
-from orb_slam_tpu_torch.geometry.camera import CameraModel
 from orb_slam_tpu_torch.geometry.horn import horn_sim3
 from orb_slam_tpu_torch.io.settings import settings_text, slam_config_from_settings
 from orb_slam_tpu_torch.io.synthetic import (
@@ -128,8 +132,7 @@ def mapping_system(scene, poses, frames, device) -> slam.SLAMSystem:
     """A SLAMSystem at the SlamConfig defaults (MapConfig(): 256
     keyframes, 16384 points; ORBConfig(); max_ba_cams 80, max_ba_points
     2048) for the scene's camera, started from frames 0 and 1."""
-    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy,
-                         width=scene.width, height=scene.height)
+    camera = scene.camera_model()
     s = slam.SLAMSystem(slam.SlamConfig(camera=camera), device=device)
     start_working(s, scene, poses, frames)
     return s
@@ -171,8 +174,7 @@ def keyframe_ate(s: slam.SLAMSystem, poses):
 def init_system(scene, device) -> slam.SLAMSystem:
     """A SLAMSystem at the SlamConfig defaults for the scene's camera,
     loop closing and relocalisation off, to start from raw frames."""
-    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy,
-                         width=scene.width, height=scene.height)
+    camera = scene.camera_model()
     return slam.SLAMSystem(slam.SlamConfig(
         camera=camera, enable_loop_closing=False,
         enable_relocalisation=False), device=device)
@@ -182,8 +184,7 @@ def reloc_system(scene, device) -> slam.SLAMSystem:
     """A SLAMSystem at the SlamConfig defaults for the scene's camera, with
     relocalisation on, loop closing off and the shipped vocabulary, to
     start from raw frames."""
-    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy,
-                         width=scene.width, height=scene.height)
+    camera = scene.camera_model()
     return slam.SLAMSystem(slam.SlamConfig(
         camera=camera, enable_loop_closing=False, enable_relocalisation=True,
         vocabulary=load_pretrained()), device=device)
@@ -340,8 +341,7 @@ def loop_system(scene, device) -> slam.SLAMSystem:
     """A SLAMSystem at the SlamConfig defaults (loop closing and
     relocalisation on, ORBConfig(), MapConfig(), chunk 8) with the shipped
     vocabulary, for the scene's camera, to start from raw frames."""
-    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy,
-                         width=scene.width, height=scene.height)
+    camera = scene.camera_model()
     return slam.SLAMSystem(slam.SlamConfig(
         camera=camera, vocabulary=load_pretrained()), device=device)
 
@@ -614,8 +614,7 @@ def loop_summary(r):
 def async_system(scene, device) -> AsyncSLAMSystem:
     """`loop_system`'s configuration as an AsyncSLAMSystem: the mapper and
     loop threads start with it."""
-    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy,
-                         width=scene.width, height=scene.height)
+    camera = scene.camera_model()
     return AsyncSLAMSystem(slam.SlamConfig(
         camera=camera, vocabulary=load_pretrained()), device=device)
 
@@ -773,6 +772,240 @@ def async_summary(r):
             f"{r['drain_s'] * 1e3:.1f} ms; {r['calls']} calls, {r['behind']} frames "
             f"handed over behind the camera; the injection window "
             f"{r['inject_s'] * 1e3:.1f} ms (not counted)")
+
+
+# the capacity path: a map small enough that both pools fill. The camera
+# sweeps a short stretch of the loop scene sideways, out and back
+# CAPACITY_LEGS times, so that it stays over mapped ground while the
+# keyframe pool is full: a full pool admits no keyframe, and it gets a slot
+# back only if the integration that took its last one culls a neighbour,
+# which none did on the card in nine configurations, so a camera that
+# moves on to new ground is lost (ROADMAP C18). The loop scene leaves
+# ~350 live points at 640x480 (a 4096-point pool never wrapped), hence 512
+CAPACITY_KEYFRAMES = 16
+CAPACITY_POINTS = 512
+CAPACITY_SWEEP = 30
+CAPACITY_LEGS = 6
+
+
+def capacity_poses(sweep: int = CAPACITY_SWEEP, legs: int = CAPACITY_LEGS):
+    """`legs` sideways legs over the first `sweep` poses of the loop
+    path, out, back, out, ... (each turn point once)."""
+    out = lateral_trajectory(sweep, step=MAPPING_STEP, yaw_rate=0.0)
+    parts = [out] + [(out[::-1] if leg % 2 else out)[1:] for leg in range(1, legs)]
+    return np.concatenate(parts)
+
+
+def capacity_system(scene, device, max_keyframes: int = CAPACITY_KEYFRAMES,
+                    max_points: int = CAPACITY_POINTS) -> slam.SLAMSystem:
+    """A SLAMSystem at the SlamConfig defaults (ORBConfig(), chunk 8,
+    relocalisation on with the shipped vocabulary, loop closing off) for
+    the scene's camera, with a map of `max_keyframes` keyframes and
+    `max_points` points, to start from raw frames."""
+    return slam.SLAMSystem(slam.SlamConfig(
+        camera=scene.camera_model(),
+        map=MapConfig(max_keyframes=max_keyframes, max_points=max_points),
+        enable_loop_closing=False, enable_relocalisation=True,
+        vocabulary=load_pretrained()), device=device)
+
+
+class SlotRecord:
+    """The slot traffic of a SLAMSystem: each point slot that the
+    initialisation or a triangulation writes (`recycled` when it held a
+    point before), each keyframe slot allocated and culled, the keyframe
+    decisions met with a full keyframe pool, and each integration's
+    host-clock ms (the device synchronized at both ends) with whether it
+    took the pool's last free slot. Attach with `recording()`, which also
+    wraps `insert_new_points` of pipeline/system.py while it is open."""
+
+    def __init__(self, s: slam.SLAMSystem):
+        self.s = s
+        self.written = []        # point slots, in the order written
+        self.recycled = 0
+        self.kf_allocs = []      # (integration index, slot)
+        self.culls = []          # (integration index, slot, pool full)
+        self.refused_full = 0
+        self.integrations = []   # (ms, pool full)
+        self._seen = set()
+
+    def _write(self, slots):
+        for p in slots:
+            self.recycled += p in self._seen
+            self._seen.add(p)
+            self.written.append(p)
+
+    @contextlib.contextmanager
+    def recording(self):
+        s, insert = self.s, slam.insert_new_points
+        methods = {k: getattr(s, k) for k in (
+            "_try_initialize", "_need_new_keyframe", "_integrate_keyframe")}
+
+        def try_initialize(frame):
+            ok = methods["_try_initialize"](frame)
+            if ok:
+                self._write(int(p) for p in np.where(
+                    s.map.pt_valid.cpu().numpy())[0])
+            return ok
+
+        def need_new_keyframe(frame_id, n_inliers):
+            need = methods["_need_new_keyframe"](frame_id, n_inliers)
+            self.refused_full += not s.free_kf and not need
+            return need
+
+        def integrate_keyframe(*args, **kw):
+            free = list(s.free_kf)
+            full = len(free) == 1
+            _sync()
+            t = time.perf_counter()
+            slot = methods["_integrate_keyframe"](*args, **kw)
+            _sync()
+            i = len(self.integrations)
+            self.integrations.append(((time.perf_counter() - t) * 1e3, full))
+            self.kf_allocs.append((i, slot))
+            self.culls += [(i, k, full) for k in s.free_kf if k not in free[1:]]
+            return slot
+
+        def insert_new_points(m, kf, nb, cand, free):
+            m, n = insert(m, kf, nb, cand, free)
+            self._write(int(p) for p in free[:int(n)].cpu())
+            return m, n
+
+        s._try_initialize = try_initialize
+        s._need_new_keyframe = need_new_keyframe
+        s._integrate_keyframe = integrate_keyframe
+        slam.insert_new_points = insert_new_points
+        try:
+            yield self
+        finally:
+            slam.insert_new_points = insert
+            for k, v in methods.items():
+                setattr(s, k, v)
+
+    def replaced(self, culls):
+        """Those of `culls` ((integration, slot, pool full) entries) whose
+        slot a later keyframe took."""
+        return [c for c in culls
+                if any(j > c[0] and slot == c[1] for j, slot in self.kf_allocs)]
+
+
+def slot_failures(s: slam.SLAMSystem) -> list:
+    """What is wrong with the slot bookkeeping of `s`: `free_pt` must hold
+    exactly the invalid point slots, once each; `free_kf` no live keyframe,
+    once each; every `pt_forward` entry -1 or a slot, and a live point
+    forwarding to itself (a free slot forwards to itself as well, as the
+    table starts, and a merged point to the point it became); the spanning
+    parents of the live keyframes a tree: no cycle, every parent live, one
+    root."""
+    out = []
+    pt_valid = s.map.pt_valid.cpu().numpy()
+    kf_valid = s.map.kf_valid.cpu().numpy()
+    if sorted(s.free_pt) != [int(i) for i in np.where(~pt_valid)[0]]:
+        out.append(f"free_pt ({len(s.free_pt)}) is not the "
+                   f"{int((~pt_valid).sum())} invalid point slots")
+    if len(set(s.free_pt)) != len(s.free_pt):
+        out.append("free_pt repeats a slot")
+    if len(set(s.free_kf)) != len(s.free_kf) or any(kf_valid[s.free_kf]):
+        out.append(f"free_kf {s.free_kf} repeats a slot or holds a live keyframe")
+    f = np.asarray(s.pt_forward)
+    P = len(pt_valid)
+    live = np.where(pt_valid)[0]
+    if ((f < -1) | (f >= P)).any() or (f[live] != live).any():
+        out.append("pt_forward has an entry out of range or a live point "
+                   "forwarding elsewhere")
+    sp = s.map.spanning_parent.cpu().numpy()
+    roots = set()
+    for k in np.where(kf_valid)[0]:
+        seen, cur = set(), int(k)
+        while sp[cur] >= 0 and cur not in seen:
+            seen.add(cur)
+            cur = int(sp[cur])
+            if not kf_valid[cur]:
+                out.append(f"keyframe {k}'s spanning chain reaches culled {cur}")
+                break
+        if cur in seen:
+            out.append(f"spanning tree cycle through keyframe {k}")
+        roots.add(cur)
+    if len(roots) != 1:
+        out.append(f"spanning tree roots {sorted(roots)}")
+    return out
+
+
+def capacity_path(scene, device, system=None, poses=None):
+    """The capacity path on a fresh `capacity_system` (or `system`): the
+    frames of `poses` (capacity_poses()) through process_batch at the
+    config's chunk, under a SlotRecord. Returns a dict: the system, the
+    ground-truth poses, the poses out, the record, the seconds of the run
+    and the number of frames."""
+    poses = capacity_poses() if poses is None else poses
+    s = system or capacity_system(scene, device)
+    frames = torch.from_numpy(np.stack([scene.render_image(p) for p in poses])).to(device)
+    record = SlotRecord(s)
+    _sync()
+    t = time.perf_counter()
+    with record.recording():
+        out = s.process_batch(frames)
+    _sync()
+    return dict(system=s, poses=poses, out=out, record=record,
+                seconds=time.perf_counter() - t, n_frames=len(poses))
+
+
+def capacity_failures(r) -> list:
+    """The capacity path's checks on a `capacity_path` result: the point
+    pool wrapped (more slots written than it holds), the keyframe pool
+    full at some keyframe decision, each keyframe culled while it was full
+    replaced by a later one, `slot_failures`, >= 90% of the frames after
+    the first tracked one tracked, WORKING at the end, the keyframe ATE
+    after a Sim3 alignment at most 2% of the path; and, since a cull with
+    the pool full is rare (C18), a keyframe culled and every culled slot,
+    full or not, taken by a later keyframe."""
+    s, rec = r["system"], r["record"]
+    cfg = s.cfg.map
+    out = []
+    if len(rec.written) <= cfg.max_points:
+        out.append(f"{len(rec.written)} point slots written, not more than "
+                   f"the {cfg.max_points} of the pool")
+    if not rec.refused_full:
+        out.append("the keyframe pool was never full at a keyframe decision")
+    kept = [c for c in rec.culls if c not in rec.replaced(rec.culls)]
+    if not rec.culls or kept:
+        out.append(f"culls {rec.culls}, never replaced: {kept}")
+    out += slot_failures(s)
+    first = next((i for i, p in enumerate(r["out"]) if p is not None), None)
+    after = r["out"][first:] if first is not None else []
+    tracked = sum(p is not None for p in after)
+    if first is None or tracked < 0.9 * len(after):
+        out.append(f"{tracked} of {len(after)} frames tracked")
+    if s.state != slam.WORKING:
+        out.append(f"state {slam.STATE_NAMES[s.state]} at the end")
+    ate, _, length, _ = keyframe_ate(s, r["poses"])
+    if not ate <= 0.02 * length:
+        out.append(f"keyframe ATE {ate:.5f} over 2% of the {length:.4f} m path")
+    return out
+
+
+def capacity_summary(r) -> str:
+    """One line on a `capacity_path` result."""
+    s, rec = r["system"], r["record"]
+    full = [c for c in rec.culls if c[2]]
+    before = [ms for ms, f in rec.integrations if not f]
+    at = [ms for ms, f in rec.integrations if f]
+    med = lambda v: f"{statistics.median(v):.1f}" if v else "-"
+    first = next((i for i, p in enumerate(r["out"]) if p is not None), 0)
+    tracked = sum(p is not None for p in r["out"])
+    ate, _, length, _ = keyframe_ate(s, r["poses"])
+    return (f"{r['n_frames']} frames, first tracked {first}, {tracked} tracked, "
+            f"state {slam.STATE_NAMES[s.state]}, lost_count {s.lost_count}, "
+            f"n_relocs {s.n_relocs}; point slots written {len(rec.written)} "
+            f"(recycled {rec.recycled}) into {s.cfg.map.max_points}, "
+            f"{s.n_points} live; keyframe slots allocated {s.kf_counter} "
+            f"into {s.cfg.map.max_keyframes}, culled {len(rec.culls)} "
+            f"({len(full)} with the pool full), {len(rec.replaced(rec.culls))} "
+            f"of them replaced, {s.n_keyframes} live; {rec.refused_full} keyframe "
+            f"decisions at capacity; integrations {len(before)} before capacity "
+            f"(median {med(before)} ms) and {len(at)} at it (median {med(at)} "
+            f"ms); keyframe ATE {ate:.5f} on a {length:.4f} m path "
+            f"({ate / length:.5f}); {r['seconds'] * 1e3 / r['n_frames']:.3f} "
+            f"ms/frame")
 
 
 def chain_pose_graph(K: int, seed: int = 0):
@@ -1217,6 +1450,9 @@ def main(argv=None):
     ap.add_argument("--async-periods", type=float, nargs="+", metavar="SECONDS",
                     help="run only async_path, once at each pace (seconds "
                          "between frames)")
+    ap.add_argument("--capacity", nargs="+", metavar="K,P,SWEEP,LEGS",
+                    help="run only capacity_path, once per map size (keyframes, "
+                         "points) and sweep (frames per leg, legs) given")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths needs a CUDA device; none is visible")
@@ -1241,6 +1477,16 @@ def main(argv=None):
             r["system"].close()
             print(f"async path: {async_summary(r)}; {card}", flush=True)
         return
+    if args.capacity:
+        scene, dev = loop_scene(), torch.device("cuda", 0)
+        for spec in args.capacity:
+            K, P, sweep, legs = (int(v) for v in spec.split(","))
+            r = capacity_path(scene, dev, capacity_system(scene, dev, K, P),
+                              capacity_poses(sweep, legs))
+            print(f"capacity path (max_keyframes {K}, max_points {P}, "
+                  f"{legs} legs of {sweep} frames): {capacity_summary(r)}; "
+                  f"failures {capacity_failures(r)}; {card}", flush=True)
+        return
     dev = torch.device("cuda", 0)
     W, H, N = 640, 480, args.frames
     scene = SyntheticScene(n_points=800, width=W, height=H)
@@ -1251,7 +1497,7 @@ def main(argv=None):
     m_poses = lateral_trajectory(N + 2, step=MAPPING_STEP, yaw_rate=MAPPING_YAW)
     m_frames = render(m_poses)
     K = torch.from_numpy(scene.K).to(dev)
-    camera = CameraModel(scene.fx, scene.fy, scene.cx, scene.cy, width=W, height=H)
+    camera = scene.camera_model()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "harris.yaml")
         with open(path, "w") as f:

@@ -257,6 +257,26 @@ def test_load_gray_without_cv2_or_pil(tmp_path, monkeypatch):
         tds._load_gray(str(tmp_path / "a.png"))
 
 
+def test_load_gray_reads_binary_pgm_itself(tmp_path, monkeypatch):
+    """A binary PGM is read with numpy even where PIL is installed (PIL is
+    not imported); an ASCII PGM goes to cv2 or PIL, and raises without
+    both."""
+    pytest.importorskip("PIL")
+    img = np.arange(7 * 5, dtype=np.float32).reshape(7, 5)
+    tds.write_pgm(str(tmp_path / "a.pgm"), img)
+    monkeypatch.delitem(sys.modules, "PIL", raising=False)
+    monkeypatch.delitem(sys.modules, "PIL.Image", raising=False)
+    np.testing.assert_array_equal(tds._load_gray(str(tmp_path / "a.pgm")), img)
+    assert "PIL" not in sys.modules
+    (tmp_path / "b.pgm").write_text("P2\n3 2\n255\n0 10 20\n30 40 255\n")
+    np.testing.assert_array_equal(tds._load_gray(str(tmp_path / "b.pgm")),
+                                  [[0, 10, 20], [30, 40, 255]])
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="cv2.*PIL"):
+        tds._load_gray(str(tmp_path / "b.pgm"))
+
+
 def test_image_dir_dataset_and_prefetch(tmp_path):
     for i in range(5):
         tds.write_pgm(str(tmp_path / f"{i:03d}.pgm"), np.full((4, 6), 10 * i))

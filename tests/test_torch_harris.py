@@ -192,8 +192,7 @@ def test_harris_chunk_matches_jax():
 
     jscene, tscene = ts.scenes(ts.DIST["pinhole"])
     poses = ts.tsyn.lateral_trajectory(ts.B + 1, step=0.01)
-    jcam = jscene.camera_model()
-    cam = ts.camera_from_numpy(jcam._asdict())
+    jcam, cam = jscene.camera_model(), tscene.camera_model()
     cfg = ORBConfig(n_features=NF, n_levels=L, score_harris=True)
     extractor = ORBExtractor(cfg, H, W, device="cpu")
     m, state = ts.build_maps(tscene, poses[0], extractor)

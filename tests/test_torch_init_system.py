@@ -59,7 +59,8 @@ from orb_slam_tpu.ops import matching as jm
 from orb_slam_tpu.pipeline import system as jsys_mod
 from orb_slam_tpu.pipeline.track_kernels import track_prev_frame as jax_prev
 from orb_slam_tpu.solvers.two_view import _sample_minimal_sets
-from orb_slam_tpu_torch.convert import camera_from_numpy, map_state_from_numpy
+from orb_slam_tpu_torch.convert import map_state_from_numpy
+from orb_slam_tpu_torch.io.synthetic import SyntheticScene as TorchScene
 from orb_slam_tpu_torch.ops import matching as tm
 from orb_slam_tpu_torch.pipeline import system as tsys
 from orb_slam_tpu_torch.pipeline.track_kernels import track_prev_frame
@@ -77,10 +78,11 @@ def i32(a):
     return T(np.ascontiguousarray(np.asarray(a).astype(np.uint32).view(np.int32)))
 
 
-def port_config(jc):
-    """The port's SlamConfig of a JAX SlamConfig in oracle mode."""
+def port_config(jc, camera):
+    """The port's SlamConfig of a JAX SlamConfig in oracle mode, with the
+    port's `camera`."""
     return tsys.SlamConfig(
-        camera=camera_from_numpy(jc.camera._asdict()), orb=None,
+        camera=camera, orb=None,
         map=MapConfig(max_keyframes=jc.map.max_keyframes,
                       max_points=jc.map.max_points, n_features=jc.map.n_features,
                       n_levels=jc.map.n_levels, scale_factor=jc.map.scale_factor),
@@ -115,7 +117,9 @@ def initialized():
         local_ba_window=6, enable_loop_closing=False, enable_relocalisation=False)
     jc.orb = None
     js = jsys_mod.SLAMSystem(jc)
-    ts = tsys.SLAMSystem(port_config(jc), device="cpu")
+    ts = tsys.SLAMSystem(
+        port_config(jc, TorchScene(n_points=500, seed=0).camera_model()),
+        device="cpu")
     for i in range(len(poses)):
         feats = scene.observe(poses[i], n_slots=200)
         if js.state == jsys_mod.INITIALIZING:

@@ -105,8 +105,7 @@ def jax_chunk(imgs, m, cam, K, pose0, score_harris=False):
 def test_extract_track_chunk_matches_jax(kind):
     jscene, tscene = scenes(DIST[kind])
     poses = tsyn.lateral_trajectory(B + 1, step=0.01)
-    jcam = jscene.camera_model()
-    cam = camera_from_numpy(jcam._asdict())
+    jcam, cam = jscene.camera_model(), tscene.camera_model()
     extractor = ORBExtractor(ORBConfig(n_features=NF, n_levels=L), H, W, device="cpu")
     m, state = build_maps(tscene, poses[0], extractor)
     imgs = np.stack([tscene.render_image(p) for p in poses[1:]])
@@ -202,9 +201,8 @@ def test_convert_roundtrip():
 
 @pytest.mark.parametrize("kind", ["pinhole", "distorted"])
 def test_undistort_matches_jax(kind):
-    jscene, _ = scenes(DIST[kind])
-    jcam = jscene.camera_model()
-    cam = camera_from_numpy(jcam._asdict())
+    jscene, tscene = scenes(DIST[kind])
+    jcam, cam = jscene.camera_model(), tscene.camera_model()
     uv = np.random.default_rng(1).uniform([0, 0], [W, H], (200, 2)).astype(np.float32)
     np.testing.assert_allclose(undistort_points(cam, torch.from_numpy(uv)).numpy(),
                                np.asarray(jax_undistort(jcam, jnp.asarray(uv))),
