@@ -876,8 +876,7 @@ def mapping_path(dev, card, kernels, scene):
         return slot
 
     s._need_new_keyframe, s._integrate_keyframe = recorded_need, recorded_integrate
-    stage_s = {}
-    s._stage_timer = StageTimer(times=stage_s)
+    timer = s._stage_timer = StageTimer()
     torch.cuda.synchronize()
     for k in kernels.values():
         k.launches = 0
@@ -953,6 +952,8 @@ def mapping_path(dev, card, kernels, scene):
     its = np.array(s.ba_iterations)
     per_kf = lambda v: sum(v) * 1e3 / n_kf
     n_nb = sum(len(c["created"]) for c in counts)
+    # the stages alone: the program's spans nest around and inside them
+    stage_s = {n: v for n, v in timer.times.items() if n in timer.stage_names}
     local = sum(sum(v) for v in stage_s.values())
     print(f"mapping path, checked run on {card}: {checked_s * 1e3 / N_FRAMES:.3f} "
           f"ms/frame (the stage clock's syncs and the state snapshot included); "

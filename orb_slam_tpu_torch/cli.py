@@ -15,7 +15,10 @@ default, as in JAX's CLI, the frames go in as fast as the system takes
 them, and with `--async` such a caller can outrun local mapping and lose
 the camera (ROADMAP C17). TF32 is off,
 as in chip_smoke.py, so the card's matrix products keep f32 precision.
-The `[final]` line names the device where JAX names its backend.
+The `[final]` line names the device where JAX names its backend. With
+`--stages` the system runs under a StageTimer that never synchronizes,
+and its summary follows the `[final]` line: per span and stage the host
+ms per frame, its self time and its count, then the program's counters.
 
     python -m orb_slam_tpu_torch.cli run settings.yaml frames/ --async
     python -m orb_slam_tpu_torch.cli eval KeyFrameTrajectory.txt gt.txt
@@ -79,6 +82,9 @@ def cmd_run(args):
         system = AsyncSLAMSystem(cfg, device=device)
     else:
         system = SLAMSystem(cfg, device=device)
+    if args.stages:
+        from orb_slam_tpu_torch.utils.timing import StageTimer
+        system._stage_timer = StageTimer(sync=False)
     try:
         n, t0 = _run_frames(args, system, STATE_NAMES,
                             PrefetchIterator(open_dataset(args.dataset)))
@@ -97,12 +103,27 @@ def cmd_run(args):
         f"fps={n / max(wall, 1e-9):.1f}",
         file=sys.stderr,
     )
+    if args.stages:
+        print(_stages_report(system._stage_timer, n), file=sys.stderr)
     write_tum(args.out, system.keyframe_trajectory(), fps=extras["fps"])
     if args.viz_every:
         from orb_slam_tpu_torch.io.viz import draw_map
         draw_map(system, args.viz_out)
         print(f"wrote {args.viz_out}", file=sys.stderr)
     print(f"wrote {args.out} ({system.n_keyframes} keyframes)", file=sys.stderr)
+
+
+def _stages_report(timer, n_frames: int) -> str:
+    """The stage timer's summary per frame of the run: each span and
+    stage's host ms per frame, self ms per frame and count, then each
+    counter's sum and events."""
+    per = 1e3 / max(n_frames, 1)
+    lines = [f"[stages] {n_frames} frames; ms per frame (self), count"]
+    lines += [f"  {k:30s} {v['total_s'] * per:9.3f} ({v['self_s'] * per:9.3f}) "
+              f"x{v['count']}" for k, v in timer.summary().items()]
+    lines += [f"  {k:30s} {sum(v)} over {len(v)} events"
+              for k, v in sorted(timer.counters.items())]
+    return "\n".join(lines)
 
 
 def _run_frames(args, system, state_names, ds):
@@ -234,6 +255,10 @@ def main(argv=None):
     r.add_argument("--async", dest="use_async", action="store_true",
                    help="run LocalMapping + LoopClosing on background "
                         "threads (the reference's 3-thread layout)")
+    r.add_argument("--stages", action="store_true",
+                   help="time the system's spans and stages without "
+                        "synchronizing, and print their summary and its "
+                        "counters after the [final] line")
     r.add_argument("--device", default="cuda",
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "the plain PyTorch path)")

@@ -1369,9 +1369,8 @@ def profile_tracking(name, cfg, cam, scene, poses, frames, K, N, card):
 def profile_mapping(scene, poses, frames, N, card):
     """One turn of the mapping path (see the module docstring)."""
     dev = frames.device
-    host = {}
     s = mapping_system(scene, poses, frames, dev)
-    s._stage_timer = StageTimer(times=host)
+    timer = s._stage_timer = StageTimer()
     torch.cuda.synchronize()
     t = time.perf_counter()
     s.process_batch(frames[2:N + 2])
@@ -1389,6 +1388,12 @@ def profile_mapping(scene, poses, frames, N, card):
         prof.export_chrome_trace(trace)
         work = device_work_by_label(trace)
     n_kf_prof = s.kf_counter - 2
+    # the stages alone; work under the program's spans outside every stage
+    # counts as tracking and replay
+    host = {n: v for n, v in timer.times.items() if n in timer.stage_names}
+    outside = [w for label, w in work.items() if label not in host]
+    work = {label: w for label, w in work.items() if label in host}
+    work[None] = tuple(map(sum, zip(*outside))) if outside else (0.0, 0)
     stage_s = sum(sum(v) for v in host.values())
     dev_us = sum(us for us, _ in work.values())
     items = sum(n for _, n in work.values())

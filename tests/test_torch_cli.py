@@ -89,14 +89,18 @@ def test_run_and_eval(tmp_path, capsys):
 
 def test_run_async_chunked(tmp_path, capsys):
     """`run --async` drives the threaded system through the chunked path,
-    from PGM frames."""
+    from PGM frames; `--stages` prints the stage timer's summary, the
+    mapper thread's stages with the tracker's spans, after `[final]`."""
     img_dir, gt, settings = render(tmp_path, 3, "pgm")
     out = tmp_path / "traj_async.txt"
     cli.main(["run", str(settings), str(img_dir), "--out", str(out),
               "--max-keyframes", "16", "--max-points", "1024",
-              "--chunk", "4", "--async", "--device", "cpu"])
+              "--chunk", "4", "--async", "--device", "cpu", "--stages"])
     err = capsys.readouterr().err
     assert "[final] frames=12 " in err and "device=cpu" in err
+    report = err[err.index("[final]"):]
+    assert "[stages] 12 frames" in report
+    assert "frame.single" in report and "frames.single" in report
     rows = np.loadtxt(str(out))
     assert rows.shape[0] >= 2 and rows.shape[1] == 8
 
