@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one CUDA card: builds the four
+"""Smoke run of the PyTorch port on one CUDA card: builds the five
 hand-written kernels, holds each against its plain PyTorch version at
 main-path shapes, then drives the port's three detection paths over 64
 frames: the FAST extract-and-track main path, the Harris
@@ -19,14 +19,21 @@ Phases (any failure raises and the exit code is non-zero):
   1. device: a CUDA card is required; prints `nvidia-smi` name and power
      limit;
   2. build: compiles csrc/fast_score_nms.cu (K1), csrc/pose_gn.cu (K2),
-     csrc/fast_score_rect.cu (K3), csrc/fast_cell_topk.cu (K4), K2 with
-     -DPOSE_GN_PROFILE and the min/max probe csrc/minmax_probe.cu, one
-     nvcc each, all at once; prints each kernel's registers, shared memory
-     and spills from nvcc's -Xptxas -v report;
-  3. kernel vs plain on the card, bit for bit for K1, K3 and K4:
+     csrc/fast_score_rect.cu (K3), csrc/fast_cell_topk.cu (K4),
+     csrc/keypoint_select.cu (K5), K2 with -DPOSE_GN_PROFILE and the
+     min/max probe csrc/minmax_probe.cu, one nvcc each, all at once;
+     prints each kernel's registers, shared memory and spills from nvcc's
+     -Xptxas -v report;
+  3. kernel vs plain on the card, bit for bit for K1, K3, K4 and K5:
      K1, K3 and K4 on the [8, 480, 640] canvas of a rendered frame, K1
      equal inside every level, K3 equal over the whole canvas (score and
-     keep), K4 equal in values and packed positions; K2 on 1024 and on 32
+     keep), K4 equal in values and packed positions; K5 (the keypoint
+     selection) equal to the plain selector in xy, score and valid, once
+     per selection, on the masked canvas after K1 of a rendered frame at
+     640x480/1000, 752x480/1000 and 1241x376/2000 features, after K3 and
+     the Harris ranking at 640x480, and on canvases all zero, of one score
+     everywhere, with most cells under 4 corners above th_ini and with
+     texture-skewed cells (k5_adversarial); K2 on 1024 and on 32
      rows with outliers, pose within 1e-4 and at most max(2, 1%) inlier
      flips. Times (cuda_ms) are CUDA graph replays of 30 captured calls,
      plain versions included: the device's time, with no host work between
@@ -46,18 +53,18 @@ Phases (any failure raises and the exit code is non-zero):
   5. FAST main path: 640x480, ORBConfig() (1000 features, 8 levels), an
      8192-slot map seeded from frame 0, p_local 4096, radius 15, motion
      model on, retry off (bench.py:46-105); checks that the path never
-     synchronizes with the device, that K1 and K2 ran once per frame and
-     K3 and K4 never, that every frame tracks with >= 30 inliers and the
+     synchronizes with the device, that K1, K2 and K5 ran once per frame
+     and K3 and K4 never, that every frame tracks with >= 30 inliers and the
      pose error bound below;
   6. Harris path: the same scene and map size, with camera, extractor
      (nScoreType 0, 1000 features, 8 levels, fastTh 20) and motion model
      read by io/settings.py from a settings file written to a temporary
      directory; the map seeded from the Harris extractor's frame 0; the
-     same checks with K3 and K2 once per frame and K1 never;
+     same checks with K3, K2 and K5 once per frame and K1 never;
   7. cell-fused detector: DetectCellsFused on each frame's [8, 480, 640]
-     canvas, with no host sync and K4 once per frame; its output shapes
-     equal the stacked detector's, and the share of its keypoints that
-     the FAST path also selects is printed;
+     canvas, with no host sync, K4 once per frame and K5 never; its
+     output shapes equal the stacked detector's, and the share of its
+     keypoints that the FAST path also selects is printed;
   8. timing of both tracking paths as bench.py: a warmup window each,
      then the median of 3 windows each, the paths in turns (F H H F F H);
   9. mapping path: the port's SLAMSystem at the SlamConfig defaults
@@ -250,8 +257,9 @@ Phases (any failure raises and the exit code is non-zero):
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last three lines are the kernel table as JSON (launches from
 the path that runs the kernel: K1 and K2 the FAST path, K3 the Harris
-path, K4 the cell-fused run; `init_path_launches` those of phase 10,
-`reloc_path_launches` those of phase 12's checked run,
+path, K4 the cell-fused run, K5 the FAST path (K5 runs once per
+extraction on every path but the cell-fused run); `init_path_launches`
+those of phase 10, `reloc_path_launches` those of phase 12's checked run,
 `loop_path_launches` those of phase 14's, `async_path_launches` those
 of phase 16's, `cli_path_launches` those of phase 17's paced `run`,
 `mesh_path_launches` those of phase 18's mesh-mode mapping run,
@@ -687,6 +695,163 @@ def check_k4(canvas, shapes):
     return err, ms, plain_ms, bound, minmax, tuple(vals.shape)
 
 
+# K5's level tables (ROADMAP F8): the main path's and two other frame
+# sizes and feature counts, (name, height, width, features)
+K5_TABLES = (("640x480/1000", 480, 640, 1000), ("752x480/1000", 480, 752, 1000),
+             ("1241x376/2000", 376, 1241, 2000))
+# what the canvases hold outside each level's true size: the selection
+# must never read it (K1 leaves it unwritten)
+K5_OUTSIDE = 999.0
+
+
+def k5_cells(selector):
+    """(level, cell, y0, y1, x0, x1) of every cell of `selector`'s grids, in
+    canvas pixels, cut to the level's true size."""
+    b = selector.border
+    out = []
+    for l, ((h, w), (rows, cols, ch, cw)) in enumerate(zip(selector.shapes,
+                                                           selector.grids)):
+        for c in range(rows * cols):
+            r, k = divmod(c, cols)
+            y0, x0 = b + r * ch, b + k * cw
+            out.append((l, c, y0, min(y0 + ch, h), x0, min(x0 + cw, w)))
+    return out
+
+
+def k5_skew_counts(selector, l):
+    """Corner counts of level l's cells on the texture-skewed canvas: 45%
+    empty, 45% one over the fair share (the first pass of the
+    redistribution takes them), one cell at the quota of the second pass
+    (which takes it), the rest richer than k_tot."""
+    rows, cols = selector.grids[l][:2]
+    n, quota = rows * cols, selector.quotas[l]
+    fair = -(-quota // n)
+    band = [c * 20 // n for c in range(n)]
+    counts = [0 if b < 9 else fair + 1 if b < 18
+              else selector.k_tots[l] + 40 * c for c, b in enumerate(band)]
+    empty, low = counts.count(0), counts.count(fair + 1)
+    if empty and empty + low < n:
+        q1 = fair + -(-empty * fair // (n - empty))
+        d1 = low * (q1 - fair - 1) if q1 > fair else 0
+        q2 = fair + -(-d1 // max(n - empty - low, 1)) if d1 > 0 else q1
+        if q2 > q1:
+            counts[empty + low] = q2
+    return counts
+
+
+def k5_adversarial(selector, H, W, seed=0):
+    """Masked score canvases [L, H, W] (numpy f32) that stress the
+    selection, by name: all zero (a grey frame); one score on every level
+    pixel (ties everywhere, so the pool and the final pick go by index,
+    and every cell holds more candidates than k_tot); most cells with at
+    most 3 scores above th_ini (the th_min fallback); texture-skewed cells
+    (empty, barely above the fair share, or rich past k_tot with integer
+    scores) that send the redistribution through several passes. All but
+    the first hold K5_OUTSIDE outside each level's true size."""
+    rng = np.random.default_rng(seed)
+    L = len(selector.shapes)
+    th_ini, th_min = selector.th_ini, selector.th_min
+    outside = np.full((L, H, W), K5_OUTSIDE, np.float32)
+    for l, (h, w) in enumerate(selector.shapes):
+        outside[l, :h, :w] = 0.0
+    ties = outside.copy()
+    for l, (h, w) in enumerate(selector.shapes):
+        ties[l, :h, :w] = th_ini + 11.0
+    fallback, skewed = outside.copy(), outside.copy()
+    for l, c, y0, y1, x0, x1 in k5_cells(selector):
+        n_px = max(0, (y1 - y0) * (x1 - x0))
+        if not n_px:
+            continue
+        at = lambda n: np.unravel_index(rng.choice(n_px, min(n, n_px),
+                                                   replace=False),
+                                        (y1 - y0, x1 - x0))
+        # fallback: a few weak corners, 0-3 strong ones (4-9 in every
+        # fifth cell, which keeps th_ini)
+        ys, xs = at(n_px // 20)
+        fallback[l, y0 + ys, x0 + xs] = rng.uniform(th_min - 2.0, th_ini,
+                                                    len(ys)).astype(np.float32)
+        ys, xs = at(int(rng.integers(4, 10)) if c % 5 == 4 else c % 4)
+        fallback[l, y0 + ys, x0 + xs] = rng.uniform(th_ini, 90.0,
+                                                    len(ys)).astype(np.float32)
+        # skewed: cells in bands of corner counts
+        ys, xs = at(k5_skew_counts(selector, l)[c])
+        skewed[l, y0 + ys, x0 + xs] = rng.integers(
+            int(th_ini) + 1, int(th_ini) + 60, len(ys)).astype(np.float32)
+    return {"all zero": np.zeros((L, H, W), np.float32), "ties": ties,
+            "th_min fallback": fallback, "texture-skewed": skewed}
+
+
+def k5_cases(dev, tables=K5_TABLES):
+    """(name, selector, masked canvas on dev) for every K5 check: for each
+    of `tables` the main path's canvas after K1 on a rendered frame and
+    k5_adversarial's canvases; at 640x480 also the Harris path's canvas
+    after K3 and the Harris ranking."""
+    from orb_slam_tpu_torch.frontend.orb_extractor import ORBConfig, ORBExtractor
+    from orb_slam_tpu_torch.io.synthetic import SyntheticScene, lateral_trajectory
+    from orb_slam_tpu_torch.ops.fast import harris_rank, harris_score_map
+    from orb_slam_tpu_torch.ops.fast_score_nms import fast_score_nms
+    from orb_slam_tpu_torch.ops.fast_score_rect import fast_score_nms_rect
+    from orb_slam_tpu_torch.ops.fast_stack import build_pyramid_stack, level_masked
+
+    cases = []
+    for name, h, w, n in tables:
+        scene = SyntheticScene(n_points=800, width=w, height=h, cx=w / 2,
+                               cy=h / 2)
+        img = torch.from_numpy(scene.render_image(lateral_trajectory(2)[1],
+                                                  noise=2.0)).to(dev)
+        ex = ORBExtractor(ORBConfig(n_features=n), h, w, device=dev)
+        sel = ex.selector
+        stack = build_pyramid_stack(img, ex.Rp, ex.Cp)
+        cases.append((f"{name} main path (K1)", sel,
+                      fast_score_nms(stack, sel.shapes, border=sel.border)))
+        if (h, w) == (480, 640):
+            score, keep = harris_rank(*fast_score_nms_rect(stack),
+                                      harris_score_map(stack), sel.th_ini,
+                                      sel.th_min)
+            cases.append((f"{name} Harris path (K3, ranking)", sel,
+                          level_masked(score, keep, sel)))
+        for kind, canvas in k5_adversarial(sel, *stack.shape[1:]).items():
+            cases.append((f"{name} {kind}", sel, torch.from_numpy(canvas).to(dev)))
+    return cases
+
+
+def k5_compare(selector, canvas):
+    """K5 against the plain selector on one canvas: the names of the
+    outputs (xy, score, valid) that differ bit for bit, and K5's launches."""
+    from orb_slam_tpu_torch.ops import keypoint_select as k5
+
+    before = k5.KERNEL.launches
+    got = k5.keypoint_select(canvas, selector)
+    launches = k5.KERNEL.launches - before
+    want = selector.plain(canvas)
+    torch.cuda.synchronize()
+    bad = [name for name, a, b in zip(("xy", "score", "valid"), got, want)
+           if not bits_equal(a, b)]
+    return bad, launches
+
+
+def check_k5(dev):
+    """K5 bit-equal to the plain selector on every k5_cases canvas, one
+    launch per selection; times on the 640x480 main path's canvas."""
+    from orb_slam_tpu_torch.ops.keypoint_select import keypoint_select
+
+    cases = k5_cases(dev)
+    for name, sel, canvas in cases:
+        bad, launches = k5_compare(sel, canvas)
+        if bad or launches != 1:
+            raise AssertionError(f"K5 on {name}: {bad} differ from plain, "
+                                 f"{launches} launches")
+    print(f"K5 keypoint_select: xy, score and valid bit-equal to plain on "
+          f"{len(cases)} canvases: {', '.join(c[0] for c in cases)}")
+    _, sel, canvas = cases[0]
+    ms = cuda_ms(lambda: keypoint_select(canvas, sel))
+    plain_ms = cuda_ms(lambda: sel.plain(canvas), reps=10)
+    # the level pixels read once, the outputs (xy, score, valid) written once
+    px = sum(h * w for h, w in sel.shapes)
+    bound = bound_ms(4 * px + len(sel.shapes) * max(sel.quotas) * 13, 0)
+    return 0.0, ms, plain_ms, bound, None
+
+
 def minmax_rate(dev, iters=4096, threads=256, blocks_per_sm=8):
     """The rate at which the card issues f32 min/max, from
     csrc/minmax_probe.cu with `blocks_per_sm` blocks of `threads` per SM:
@@ -919,7 +1084,8 @@ def mapping_path(dev, card, kernels, scene):
         raise AssertionError(f"mapping path: keyframe centre error {c_err.max():.4f}")
     if not finite:
         raise AssertionError("mapping path: non-finite output")
-    expect_launches = {"K1": N_FRAMES, "K2": N_FRAMES, "K3": 0, "K4": 0}
+    expect_launches = {"K1": N_FRAMES, "K2": N_FRAMES, "K3": 0, "K4": 0,
+                       "K5": N_FRAMES}
     if launches != expect_launches:
         raise AssertionError(f"mapping path: launches {launches}, "
                              f"expected {expect_launches}")
@@ -1220,7 +1386,7 @@ def mesh_phase(dev, card, kernels, mapped, devices):
     if len(outs) != len(imgs) or not finite or not ate <= MAX_ATE_SHARE * length:
         failures.append(f"mesh mode mapping path: {len(outs)} frames, ATE {ate}")
     if (launches["K1"] != len(imgs) or launches["K2"] < len(imgs)
-            or launches["K3"] or launches["K4"]):
+            or launches["K3"] or launches["K4"] or launches["K5"] != len(imgs)):
         failures.append(f"mesh mode mapping path: launches {launches}")
     if n_kf < 2 or reductions.count(len(devices)) < 5 * n_kf:
         failures.append(f"mesh mode mapping path: {n_kf} keyframes, reductions "
@@ -1348,7 +1514,8 @@ def init_path(dev, card, kernels, scene):
     # a chunk extracted past a keyframe or a weak frame), K2 at least once
     # per tracked frame
     if (launches["K1"] != extractions[0] or extractions[0] < n
-            or launches["K2"] < tracked or launches["K3"] or launches["K4"]):
+            or launches["K2"] < tracked or launches["K3"] or launches["K4"]
+            or launches["K5"] != extractions[0]):
         raise AssertionError(f"init path: launches {launches}, {extractions[0]} "
                              f"extractions, {tracked} frames tracked")
     good = [c for c in calls if bool(c[1].success)]
@@ -1551,6 +1718,7 @@ def reloc_phase(dev, card, kernels, scene):
     if not finite:
         raise AssertionError("reloc path: non-finite output")
     if (launches["K1"] != extractions[0] or launches["K3"] or launches["K4"]
+            or launches["K5"] != extractions[0]
             or any(c["epnp"] and c["k2"] < 1 for c in calls)):
         raise AssertionError(f"reloc path: launches {launches}, {extractions[0]} "
                              f"extractions")
@@ -1816,7 +1984,7 @@ def loop_phase(dev, card, kernels):
     if not finite:
         raise AssertionError("loop path: non-finite output")
     if (launches["K1"] != extractions[0] or launches["K2"] < tracked
-            or launches["K3"] or launches["K4"]):
+            or launches["K3"] or launches["K4"] or launches["K5"] != extractions[0]):
         raise AssertionError(f"loop path: launches {launches}, {extractions[0]} "
                              f"extractions, {tracked} frames tracked")
     closing = next(p for p in r["passes"] if p["frame_id"] == c["frame_id"])
@@ -2022,7 +2190,8 @@ def async_phase(dev, card, kernels, seq):
         if not finite:
             raise AssertionError("async path: non-finite output")
         if (launches["K1"] != extractions[0] or launches["K2"] < tracked
-                or launches["K3"] or launches["K4"]):
+                or launches["K3"] or launches["K4"]
+                or launches["K5"] != extractions[0]):
             raise AssertionError(f"async path: launches {launches}, {extractions[0]} "
                                  f"extractions, {tracked} frames tracked")
 
@@ -2160,13 +2329,14 @@ def cli_phase(dev, card, kernels):
         if not result["ate_rmse"] <= MAX_ATE_SHARE * length:
             raise AssertionError(f"CLI: ATE {result['ate_rmse']:.5f} over "
                                  f"{MAX_ATE_SHARE} of the {length:.3f} m path")
-        if launches["K1"] != n_ext or n_ext < CLI_FRAMES:
+        if launches["K1"] != n_ext or launches["K5"] != n_ext or n_ext < CLI_FRAMES:
             raise AssertionError(f"CLI: launches {launches}, {n_ext} extractions")
         u_final, u_rows, u_launches, u_ext = run(os.path.join(tmp, "unpaced.txt"))
         print(f"CLI unpaced (ROADMAP C17's reading, not gated): {u_final!r}; "
               f"{len(u_rows)} keyframes in the trajectory; {u_ext} extractions; "
               f"launches {u_launches}; {card}")
-        if u_launches["K1"] != u_ext or u_ext < CLI_FRAMES:
+        if (u_launches["K1"] != u_ext or u_launches["K5"] != u_ext
+                or u_ext < CLI_FRAMES):
             raise AssertionError(f"CLI unpaced: launches {u_launches}, "
                                  f"{u_ext} extractions")
     return launches
@@ -2230,7 +2400,8 @@ def example_phase(dev, card, kernels):
     # K1 once in every extraction, K2 at least once per frame tracked after
     # the initialisation frame (whose pose the two-view solver gives)
     if (launches["K1"] != extractions[0] or extractions[0] < EXAMPLE_FRAMES
-            or launches["K2"] < tracked - 1 or launches["K3"] or launches["K4"]):
+            or launches["K2"] < tracked - 1 or launches["K3"] or launches["K4"]
+            or launches["K5"] != extractions[0]):
         raise AssertionError(f"example: launches {launches}, {extractions[0]} "
                              f"extractions, {tracked} frames tracked")
     return launches
@@ -2283,7 +2454,8 @@ def capacity_phase(dev, card, kernels):
     # K1 once in every extraction, K2 at least once per frame tracked after
     # the initialisation frame
     if (launches["K1"] != extractions[0] or extractions[0] < r["n_frames"]
-            or launches["K2"] < tracked or launches["K3"] or launches["K4"]):
+            or launches["K2"] < tracked or launches["K3"] or launches["K4"]
+            or launches["K5"] != extractions[0]):
         failures.append(f"launches {launches}, {extractions[0]} extractions, "
                         f"{tracked} frames tracked after the first")
     if failures:
@@ -2311,6 +2483,7 @@ def main():
     from orb_slam_tpu_torch.ops import fast_cell_topk as k4
     from orb_slam_tpu_torch.ops import fast_score_nms as k1
     from orb_slam_tpu_torch.ops import fast_score_rect as k3
+    from orb_slam_tpu_torch.ops import keypoint_select as k5
     from orb_slam_tpu_torch.ops.fast_stack import (
         DetectCellsFused, build_pyramid_stack, detect_keypoints_packed,
     )
@@ -2318,7 +2491,8 @@ def main():
     from orb_slam_tpu_torch.slam_map.map_state import MapConfig
     from orb_slam_tpu_torch.solvers import pose_opt as k2
 
-    kernels = {"K1": k1.KERNEL, "K2": k2.KERNEL, "K3": k3.KERNEL, "K4": k4.KERNEL}
+    kernels = {"K1": k1.KERNEL, "K2": k2.KERNEL, "K3": k3.KERNEL, "K4": k4.KERNEL,
+               "K5": k5.KERNEL}
 
     # -- build: one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -2366,7 +2540,8 @@ def main():
     # -- kernel vs plain at main-path shapes
     canvas = build_pyramid_stack(frames[0], extractor.Rp, extractor.Cp)
     checks = {"K1": check_k1(canvas, extractor.shapes), "K2": check_k2(dev),
-              "K3": check_k3(canvas), "K4": check_k4(canvas, extractor.shapes)}
+              "K3": check_k3(canvas), "K4": check_k4(canvas, extractor.shapes),
+              "K5": check_k5(dev)}
     print(f"K1 fast_score_nms: bit-equal to plain inside every level of "
           f"{list(canvas.shape)}")
     print(f"K2 pose_gn: max |dT| {checks['K2'][0]:.3g} vs plain at 1024 rows")
@@ -2471,7 +2646,8 @@ def main():
     fast_launches, fast_window = track_path("FAST main path", extractor,
                                             camera, True)
     expect_launches("FAST main path", fast_launches,
-                    {"K1": N_FRAMES, "K2": N_FRAMES, "K3": 0, "K4": 0})
+                    {"K1": N_FRAMES, "K2": N_FRAMES, "K3": 0, "K4": 0,
+                     "K5": N_FRAMES})
 
     # -- Harris path, from a settings file
     with tempfile.TemporaryDirectory() as tmp:
@@ -2485,7 +2661,8 @@ def main():
     harris_launches, harris_window = track_path(
         "Harris path", harris, h_cam, h_extras["use_motion_model"])
     expect_launches("Harris path", harris_launches,
-                    {"K1": 0, "K2": N_FRAMES, "K3": N_FRAMES, "K4": 0})
+                    {"K1": 0, "K2": N_FRAMES, "K3": N_FRAMES, "K4": 0,
+                     "K5": N_FRAMES})
 
     # -- cell-fused detector on every frame's canvas
     cells = DetectCellsFused(extractor.shapes, extractor.quotas, device=dev)
@@ -2493,7 +2670,7 @@ def main():
               for f in frames[1:]]
     cell_out, cell_launches = run_counted(lambda: [cells(s) for s in stacks])
     expect_launches("cell-fused run", cell_launches,
-                    {"K1": 0, "K2": 0, "K3": 0, "K4": N_FRAMES})
+                    {"K1": 0, "K2": 0, "K3": 0, "K4": N_FRAMES, "K5": 0})
     shared, n_fast = 0, 0
     for s, (xy_c, _, v_c) in zip(stacks, cell_out):
         xy_f, _, v_f = detect_keypoints_packed(s, extractor.selector)
@@ -2543,7 +2720,8 @@ def main():
     capacity_launches = capacity_phase(dev, card, kernels)
 
     launches = {"K1": fast_launches["K1"], "K2": fast_launches["K2"],
-                "K3": harris_launches["K3"], "K4": cell_launches["K4"]}
+                "K3": harris_launches["K3"], "K4": cell_launches["K4"],
+                "K5": fast_launches["K5"]}
     meta = {
         "K1": ("fast_score_nms", "orb_slam_tpu_torch/csrc/fast_score_nms.cu",
                "orb_slam_tpu/ops/pallas_fast.py:121"),
@@ -2553,6 +2731,9 @@ def main():
                "orb_slam_tpu/ops/pallas_fast.py:32"),
         "K4": ("fast_cell_topk", "orb_slam_tpu_torch/csrc/fast_cell_topk.cu",
                "orb_slam_tpu/ops/pallas_fast.py:287"),
+        "K5": ("keypoint_select", "orb_slam_tpu_torch/csrc/keypoint_select.cu",
+               "none (XLA ops: orb_slam_tpu/ops/fast_stack.py:297, "
+               "orb_slam_tpu/ops/fast.py:103)"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

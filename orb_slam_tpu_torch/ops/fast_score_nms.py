@@ -13,8 +13,8 @@ FAST score where a pixel is a 3x3 maximum inside its level's
 [border, h-border) x [border, w-border), else 0. The kernel launches one
 block per 32x32 tile that meets a level (`tile_table`) and leaves the
 canvas outside those tiles unwritten (as the Pallas kernel does); the
-plain version zeroes it; callers mask it (ops/fast_stack.py::
-KeypointSelector).
+plain version zeroes it; the selection never reads it (K5 reads each
+level inside its true size; KeypointSelector.plain zeroes it).
 
 Every output value is a min or max of exactly rounded f32 differences, so
 the kernel equals the plain version exactly, whatever order it reduces in.

@@ -11,7 +11,9 @@ detector entries and their shared selection tail:
     `select_from_scores` (:264-292); the Harris (nScoreType=0) extraction;
   - `DetectCellsFused`, the port of `_detect_cells_fused` (:195-261):
     kernel K4 (ops/fast_cell_topk.py) and its candidate tail;
-  - `KeypointSelector`, the port of `_select_from_masked` (:295-408).
+  - `KeypointSelector`, the port of `_select_from_masked` (:295-408):
+    kernel K5 (ops/keypoint_select.py) on the card, its plain version on
+    the CPU.
 The FAST score `fast_score_stack` (:99-123) is in ops/fast.py.
 
 All levels live in one [L, H, W] canvas, each in its top-left corner.
@@ -32,6 +34,7 @@ from orb_slam_tpu_torch.ops.fast_cell_topk import cell_block_table, fast_cell_to
 from orb_slam_tpu_torch.ops.fast_score_nms import fast_score_nms
 from orb_slam_tpu_torch.ops.fast_score_rect import fast_score_nms_rect
 from orb_slam_tpu_torch.ops.image import pyramid_shapes
+from orb_slam_tpu_torch.ops.keypoint_select import LaunchPlan, keypoint_select
 from orb_slam_tpu_torch.ops.sort import top_k
 
 
@@ -100,7 +103,8 @@ class KeypointSelector(torch.nn.Module):
     [L, Qmax] f32, valid [L, Qmax] bool), Qmax = max(quotas). It reproduces
     the JAX selection exactly, tie order included: its approx_max_k pool
     (exact off the TPU), its stable lexicographic (cell, -score) sort and
-    its lax.top_k."""
+    its lax.top_k. On a CUDA canvas the call is kernel K5
+    (ops/keypoint_select.py), on a CPU canvas `plain`."""
 
     def __init__(self, shapes, quotas, th_ini=20.0, th_min=7.0, border=16,
                  device="cuda"):
@@ -118,9 +122,20 @@ class KeypointSelector(torch.nn.Module):
         C = int(n_real.max())
         self.register_buffer("quota_t", torch.tensor(quotas, dtype=torch.int32))
         self.register_buffer("active", torch.arange(C)[None, :] < n_real[:, None])
+        self._plan = None
         self.to(require_device(device))
 
+    def launch_plan(self) -> LaunchPlan:
+        """K5's level table for this selector, made at the first launch."""
+        if self._plan is None:
+            self._plan = LaunchPlan(self)
+        return self._plan
+
     def forward(self, base: torch.Tensor):
+        return keypoint_select(base, self)
+
+    def plain(self, base: torch.Tensor):
+        """The selection in plain PyTorch: K5's plain version."""
         L, H, W = base.shape
         dev, border = base.device, self.border
         base = base.clone()
@@ -188,14 +203,22 @@ def detect_keypoints_packed(stack: torch.Tensor, selector: KeypointSelector):
     return selector(base)
 
 
-def select_from_scores(score: torch.Tensor, keep: torch.Tensor,
-                       selector: KeypointSelector):
-    """Zero non-maxima and pixels outside each level's [border, h-border) x
-    [border, w-border), then select (fast_stack.py:264-292)."""
+def level_masked(score: torch.Tensor, keep: torch.Tensor,
+                 selector: KeypointSelector) -> torch.Tensor:
+    """`score` with non-maxima and pixels outside each level's
+    [border, h-border) x [border, w-border) zeroed: the canvas the
+    selection takes."""
     L, H, W = score.shape
     in_border = level_interior(selector.shapes, H, W, selector.border,
                                score.device)
-    return selector(torch.where(keep & in_border, score, 0.0))
+    return torch.where(keep & in_border, score, 0.0)
+
+
+def select_from_scores(score: torch.Tensor, keep: torch.Tensor,
+                       selector: KeypointSelector):
+    """Zero non-maxima and pixels outside each level's border, then select
+    (fast_stack.py:264-292)."""
+    return selector(level_masked(score, keep, selector))
 
 
 def detect_keypoints_stack(stack: torch.Tensor, selector: KeypointSelector,

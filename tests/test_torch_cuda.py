@@ -3,8 +3,9 @@ main path's, and the port's main path on the card against itself on the
 CPU. Needs a CUDA device and nvcc; skipped without a card. On the GPU
 machine: `python -m pytest tests/test_torch_cuda.py -q -m cuda`.
 
-Tolerances: K1, K3 and K4 are bit-exact (min/max of exact differences,
-exact top-K; the tests that compare bit patterns tell -0.0 from +0.0);
+Tolerances: K1, K3, K4 and K5 are bit-exact (min/max of exact
+differences, exact top-K, compares only; the tests that compare bit
+patterns tell -0.0 from +0.0);
 K2 holds the JAX kernel test's bounds (pose atol 1e-4, at
 most max(2, 1%) inlier flips); the whole path on the card and on the CPU
 sums in different orders, so poses agree to 1e-3 and at least 98% of
@@ -16,6 +17,8 @@ the pyramid can swap two).
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke
 
 from orb_slam_tpu_torch.frontend.orb_extractor import ORBConfig, ORBExtractor
 from orb_slam_tpu_torch.geometry.camera import CameraModel
@@ -75,6 +78,19 @@ def test_k1_rejects_bad_input(dev):
         k1.fast_score_nms(stack.to(dev).transpose(1, 2), shapes)
     with pytest.raises(ValueError):
         k1.fast_score_nms(stack.to(dev), shapes[:-1])
+
+
+@pytest.mark.parametrize("table", chip_smoke.K5_TABLES, ids=lambda t: t[0])
+def test_k5_equals_plain(dev, table):
+    """chip_smoke.check_k5's comparisons at one table: K5 bit-equal to the
+    plain selector (xy, score, valid) on the main path's canvas after K1,
+    the Harris path's at 640x480 and the adversarial canvases, one launch
+    per selection."""
+    cases = chip_smoke.k5_cases(dev, tables=[table])
+    assert len(cases) >= 5
+    for name, sel, canvas in cases:
+        bad, launches = chip_smoke.k5_compare(sel, canvas)
+        assert not bad and launches == 1, (name, bad, launches)
 
 
 @pytest.mark.parametrize("h,w,levels,quantize", [
