@@ -14,14 +14,17 @@ it with two keyframes from the two seed frames, and hands it the prefix,
 noiseless, on the mix's own path (`frames_per_call` per `process_batch`
 call), so that the map at the episode's start holds what a sequence's
 worth of frames leaves in it: the same state for every seed. That state is
-snapshotted. The seed draws `takes` copies of the episode's frames on the
-card, each with its own sensor noise. Each episode restores the snapshot
-and hands the system one take's frames, the next call made when the last
-one returns (a closed loop); episode n plays take n modulo the takes. The
+snapshotted. The mix's `takes` copies of the episode's frames are made on
+the card, each with its own sensor noise, the same copies for every seed;
+the seed draws the order in which they play. Each episode restores the
+snapshot and hands the system one take's frames, the next call made when
+the last one returns (a closed loop); episode n plays the seed's take n
+modulo the takes. The
 prefix runs the very path the episodes run, so every kernel and shape is
-built before the window; the window then runs episodes until `seconds`
-have passed, ending with the call that crosses that mark (never inside
-the first episode, which the check reads). With `trace` the window runs
+built before the window; the window then runs whole rounds of the takes
+until `seconds` have passed, ending with the round that crosses that
+mark, so that every seed's window does the same work (the first episode
+is the one the check reads). With `trace` the window runs
 with host clocks around the program's chunk, its keyframe integration and
 its local-mapping stages, and counts of local mapping's neighbours and
 bundle-adjustment cameras; after the window one episode runs plain and
@@ -45,7 +48,7 @@ import numpy as np
 import torch
 
 from slam_bench import check, seeding
-from slam_bench.scene import SyntheticScene, lateral_trajectory
+from slam_bench.scene import TRAJECTORIES, SyntheticScene
 from slam_bench.trace import device_events, from_events
 
 ROOT = Path(__file__).resolve().parent
@@ -168,35 +171,44 @@ def reference_numbers(config: dict) -> dict:
 def scene_frames(config: dict, traffic: dict):
     """(scene, ground-truth poses [2 + prefix + n, 4, 4], noiseless frames
     [2 + prefix + n, H, W] numpy): two seed frames, the prefix, then the
-    episode's frames, the same for every seed."""
+    episode's frames, the same for every seed. The mix's `scene` keys but
+    `noise` are the scene's fields (`layout` "box" or "street"), and its
+    `trajectory` keys but `kind` ("lateral" or "forward") are the path's
+    arguments; a missing key takes the scene's or the path's default."""
     st = config["settings"]
-    sc = traffic["scene"]
+    sc = {k: v for k, v in traffic["scene"].items() if k != "noise"}
     scene = SyntheticScene(
-        n_points=sc["n_points"], width=st["Camera.width"], height=st["Camera.height"],
+        width=st["Camera.width"], height=st["Camera.height"],
         fx=st["Camera.fx"], fy=st["Camera.fy"], cx=st["Camera.cx"], cy=st["Camera.cy"],
-        seed=sc["seed"], extent=tuple(sc["extent"]),
-        depth_range=tuple(sc["depth_range"]),
         dist=tuple(st.get(k, 0.0) for k in ("Camera.k1", "Camera.k2",
-                                             "Camera.p1", "Camera.p2")))
-    tr = traffic["trajectory"]
+                                             "Camera.p1", "Camera.p2")), **sc)
+    tr = dict(traffic["trajectory"])
+    kind = tr.pop("kind", "lateral")
+    if kind not in TRAJECTORIES:
+        raise ValueError(f"unknown trajectory kind {kind!r}")
     n = 2 + traffic.get("prefix_frames", 0) + traffic["episode_frames"]
-    poses = lateral_trajectory(n, step=tr["step"], yaw_rate=tr["yaw_rate"],
-                               start_x=tr.get("start_x", 0.0),
-                               yaw_period=tr.get("yaw_period", 0))
+    poses = TRAJECTORIES[kind](n, **tr)
     return scene, poses, np.stack([scene.render_image(p) for p in poses])
 
 
-def noisy(clean: torch.Tensor, seed: int, sigma: float, count: int):
+def noisy(clean: torch.Tensor, sigma: float, count: int):
     """`count` takes of the frames [n, H, W] on their device, each with
     Gaussian sensor noise of standard deviation `sigma` from a generator
-    on the device seeded by (seed, take), clipped to [0, 255]."""
+    on the device seeded by the take's index, clipped to [0, 255]: the
+    same takes for every seed."""
     out = []
     for k in range(count):
         gen = torch.Generator(device=clean.device)
-        gen.manual_seed((seed % 2 ** 40) * 4096 + k)
+        gen.manual_seed(k)
         noise = torch.randn(clean.shape, generator=gen, device=clean.device)
         out.append(torch.clamp(clean + sigma * noise, 0.0, 255.0))
     return out
+
+
+def take_order(seed: int, count: int) -> list:
+    """The order in which a seed plays the `count` takes: a permutation
+    drawn from the seed."""
+    return np.random.default_rng(seed).permutation(count).tolist()
 
 
 # ------------------------------------------------------------------ hooks
@@ -380,9 +392,8 @@ def install_labels(s, labels: list):
 
 def episode(s, snap, frames, per_call, on_call=None, labels=None):
     """Restore the snapshot and hand the system the episode's frames,
-    `per_call` at a time. on_call(n frames, seconds, poses) after each call;
-    returning True from it ends the episode early. With `labels` the
-    restore's host-clock range is appended there."""
+    `per_call` at a time. on_call(n frames, seconds, poses) after each
+    call. With `labels` the restore's host-clock range is appended there."""
     t = time.perf_counter()
     seeding.restore(s, snap)
     if labels is not None:
@@ -392,17 +403,18 @@ def episode(s, snap, frames, per_call, on_call=None, labels=None):
         t = time.perf_counter()
         poses = s.process_batch(batch, chunk_size=per_call)
         dt = time.perf_counter() - t
-        if on_call is not None and on_call(len(batch), dt, poses):
-            return True
-    return False
+        if on_call is not None:
+            on_call(len(batch), dt, poses)
 
 
 def measure(s, snap, takes, per_call, seconds, capture=None):
-    """The window: episodes until `seconds` have passed, episode n on take
-    n modulo the takes. Returns (host clock at its start, window seconds,
-    latency of each frame handed over, frames without a pose, episodes
-    begun). The first episode records into `capture` and always runs to
-    its end."""
+    """The window: whole rounds of episodes, each round every take once in
+    the seed's order (episode n on take n modulo the takes), until
+    `seconds` have passed; it ends with the round that crosses that mark,
+    so every seed's window holds the same work. Returns (host clock at its
+    start, window seconds, latency of each frame handed over, frames
+    without a pose, episodes run). The first episode records into
+    `capture`."""
     lat, failed = [], [0]
     sync()
     t0 = time.perf_counter()
@@ -412,18 +424,15 @@ def measure(s, snap, takes, per_call, seconds, capture=None):
     def on_call(n, dt, poses):
         lat.extend([dt] * n)
         failed[0] += sum(p is None for p in poses)
-        return n_ep > 0 and time.perf_counter() >= end
 
-    done = False
-    while not done:
+    while n_ep % len(takes) or time.perf_counter() < end:
         rec = install_capture(s, capture) if (capture is not None and n_ep == 0) else None
         try:
-            done = episode(s, snap, takes[n_ep % len(takes)], per_call, on_call)
+            episode(s, snap, takes[n_ep % len(takes)], per_call, on_call)
         finally:
             if rec is not None:
                 remove_capture(s, rec)
         n_ep += 1
-        done = done or (n_ep > 1 and time.perf_counter() >= end)
     sync()
     return t0, time.perf_counter() - t0, lat, failed[0], n_ep
 
@@ -549,9 +558,12 @@ def build(cell: Cell, device, log=None) -> Setup:
 
 
 def takes_of(cell: Cell, setup: Setup, seed: int):
-    """The seed's `takes` noisy copies of the episode's frames."""
+    """The mix's `takes` noisy copies of the episode's frames, the same
+    for every seed, in the order the seed draws: every seed's window
+    plays the same work in another order."""
     sc = cell.traffic
-    return noisy(setup.clean, seed, sc["scene"]["noise"], sc["takes"])
+    takes = noisy(setup.clean, sc["scene"]["noise"], sc["takes"])
+    return [takes[k] for k in take_order(seed, len(takes))]
 
 
 def judge(cell: Cell, capture, frames, failed: int, device, truth: dict,

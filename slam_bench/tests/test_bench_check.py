@@ -2,6 +2,8 @@
 fails, and so does a run with the timed path broken underneath, once for
 each fault a cell can have."""
 
+import json
+
 import pytest
 import torch
 
@@ -39,6 +41,20 @@ def test_a_traced_run_reads_its_per_layer_metrics(tmp_path):
     assert "K1_roofline" not in res["metrics"]
     assert "device.idle_pct" not in res["metrics"]
     assert "window_s" not in res["device"]
+
+
+def test_a_driving_cell_from_files_alone_runs_and_is_checked(tmp_path):
+    # a street and a forward path, from nothing but the cell's files
+    bench = tiny.write_drive_cell(tmp_path / "files")
+    res = tiny.run(tmp_path / "cut", tiny.DRIVE_CELL, bench=bench,
+                   src=tmp_path / "files")
+    line = json.loads(json.dumps(res))
+    assert set(line["checks"]) == {
+        "features_differ", "track_pose_gap_px_p90", "kf_pose_gap_px_p90",
+        "point_gap_px", "wrong_point_share", "frames_unanswered"}
+    assert all(c["value"] is not None for c in line["checks"].values())
+    assert line["correct"], line["checks"]
+    assert line["failed"] == 0 and line["attempted"] >= 8
 
 
 def test_the_control_fails(tmp_path):

@@ -107,6 +107,7 @@ def full_readings(stages):
         config = json.load(f)
     dev = [("fast_score_nms_kernel", "kernel", 0.1, 0.10002),
            ("pose_gn_kernel", "kernel", 0.2, 0.2002),
+           ("keypoint_select_cells_kernel", "kernel", 0.25, 0.25001),
            ("Memcpy HtoD", "gpu_memcpy", 0.3, 0.31)]
     spans = dict(chunk_s=[0.2, 0.19], chunk_frames=[8, 8], integrate_s=[0.22, 0.24],
                  stages=stages, neighbors=[6, 7], ba_cams=[29, 30])
@@ -123,7 +124,7 @@ def test_the_readers_before_read_the_same_beside_the_programs_spans():
         bench = json.load(f)
     names = [m["name"] for m in bench["end_to_end"] + bench["per_layer"]
              if m["name"] not in NEW]
-    assert len(names) == 15
+    assert len(names) == 16
     stages = {"fuse": [0.07, 0.08], "triangulation+insertion": [0.03, 0.035],
               "BA phase 1": [0.05, 0.05], "BA phase 2": [0.04, 0.045]}
     without, with_ = full_readings(stages), full_readings({**stages, **program_times()})

@@ -4,7 +4,10 @@ name, and a new one is found from its file alone."""
 import json
 import shutil
 
-from slam_bench import harness
+import pytest
+
+from slam_bench import harness, roofline
+from slam_bench.tests import tiny
 
 
 def bench():
@@ -12,11 +15,21 @@ def bench():
         return json.load(f)
 
 
+def assert_frame_size_holds(settings):
+    """Width and height are positive whole numbers, and the pyramid's last
+    level is at least 32 pixels on each side."""
+    w, h = settings["Camera.width"], settings["Camera.height"]
+    assert isinstance(w, int) and isinstance(h, int) and w > 0 and h > 0
+    last = roofline.pyramid_shapes(h, w, settings["ORBextractor.nLevels"],
+                                   settings["ORBextractor.scaleFactor"])[-1]
+    assert min(last) >= 32, last
+
+
 def test_every_entry_loads_by_name():
     b = bench()
     for w in b["workloads"]:
         cell = harness.Cell(w["name"], b)
-        assert cell.config["settings"]["Camera.width"] == 640
+        assert_frame_size_holds(cell.config["settings"])
         assert cell.traffic["frames_per_call"] >= 1
         assert set(cell.limits()) >= {"features_differ", "track_pose_gap_px_p90",
                                       "wrong_point_share", "frames_unanswered"}
@@ -55,6 +68,28 @@ def test_a_new_cell_is_found_from_files_alone(tmp_path):
     assert cell.limits() == {"features_differ": 0.0}
     assert "episodes" in {m["name"] for m in cell.per_layer}
     assert harness.reader(root, "episodes")(harness.Readings(episodes=3)) == 3.0
+
+
+def test_a_driving_cell_is_found_from_files_alone(tmp_path):
+    # 1241x376 frames down a street, from a configuration, a mix and a
+    # limits file that name nothing the harness does not read
+    b = tiny.write_drive_cell(tmp_path)
+    cell = harness.Cell(tiny.DRIVE_CELL, b, tmp_path)
+    st = cell.config["settings"]
+    assert (st["Camera.width"], st["Camera.height"]) == (1241, 376)
+    assert_frame_size_holds(st)
+    assert cell.traffic["scene"]["layout"] == "street"
+    assert cell.traffic["trajectory"]["kind"] == "forward"
+    assert cell.limits() == harness.Cell("tum-fast.creep-batch", bench()).limits()
+    assert {"card_ms_per_frame", "setup_s"} <= {m["name"] for m in cell.e2e}
+    assert {"K1_roofline", "K5_roofline"} <= {m["name"] for m in cell.per_layer}
+    mix = {**cell.traffic, "prefix_frames": 0, "episode_frames": 2}
+    scene, poses, frames = harness.scene_frames(cell.config, mix)
+    assert frames.shape == (4, 376, 1241)
+    assert scene.points.shape == (12000, 3)
+    centre = -poses[-1, :3, :3].T @ poses[-1, :3, 3]
+    assert centre[2] == pytest.approx(3 * 0.8, abs=1e-3)
+    assert 0.05 < (scene.billboard_index(poses[-1]) >= 0).mean() < 1.0
 
 
 def test_per_layer_metrics_follow_their_workloads():
