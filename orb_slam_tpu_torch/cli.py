@@ -13,7 +13,9 @@ SECONDS would, as the reference's examples pace a sequence by sleeping
 until the next frame's timestamp (Examples/Monocular/mono_tum.cc); by
 default, as in JAX's CLI, the frames go in as fast as the system takes
 them, and with `--async` such a caller can outrun local mapping and lose
-the camera (ROADMAP C17). TF32 is off,
+the camera (ROADMAP C17). A settings file that gives no frame size
+(ORB-SLAM's and ORB-SLAM2's files give none) takes the dataset's first
+image's (`settings_for_images`), where JAX takes 640x480. TF32 is off,
 as in chip_smoke.py, so the card's matrix products keep f32 precision.
 The `[final]` line names the device where JAX names its backend. With
 `--stages` the system runs under a StageTimer that never synchronizes,
@@ -27,6 +29,7 @@ ms per frame, its self time and its count, then the program's counters.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
 import time
@@ -40,12 +43,27 @@ def _device_name(device) -> str:
     return device.type
 
 
+def settings_for_images(path: str, first_image=None):
+    """(CameraModel, ORBConfig, extras) of the settings file at `path` for
+    a dataset whose first image is `first_image` ([H, W] or [H, W, 3];
+    None for an empty dataset): a file that gives no Camera.width and
+    Camera.height, as ORB-SLAM2's KITTI00-02.yaml and ORB-SLAM's
+    Settings.yaml give none, takes the image's size, as ORB-SLAM does
+    (its frames take their size from the image); without an image, the
+    reader's 640x480."""
+    from orb_slam_tpu_torch.io.settings import slam_config_from_settings
+
+    if first_image is None:
+        return slam_config_from_settings(path)
+    height, width = first_image.shape[:2]
+    return slam_config_from_settings(path, width=int(width), height=int(height))
+
+
 def cmd_run(args):
     import torch
 
     from orb_slam_tpu_torch.device import require_device
     from orb_slam_tpu_torch.io.dataset import PrefetchIterator, open_dataset
-    from orb_slam_tpu_torch.io.settings import slam_config_from_settings
     from orb_slam_tpu_torch.io.trajectory import write_tum
     from orb_slam_tpu_torch.pipeline.system import STATE_NAMES, SLAMSystem, SlamConfig
     from orb_slam_tpu_torch.slam_map.map_state import MapConfig
@@ -60,7 +78,12 @@ def cmd_run(args):
         print(f"loading vocabulary {args.vocab} ...", file=sys.stderr)
         vocab = load_text(args.vocab)
 
-    cam, orb, extras = slam_config_from_settings(args.settings)
+    frames = iter(PrefetchIterator(open_dataset(args.dataset)))
+    first = next(frames, None)
+    cam, orb, extras = settings_for_images(
+        args.settings, None if first is None else first[1])
+    if first is not None:
+        frames = itertools.chain([first], frames)
     cfg = SlamConfig(
         camera=cam, orb=orb,
         map=MapConfig(max_keyframes=args.max_keyframes,
@@ -86,8 +109,7 @@ def cmd_run(args):
         from orb_slam_tpu_torch.utils.timing import StageTimer
         system._stage_timer = StageTimer(sync=False)
     try:
-        n, t0 = _run_frames(args, system, STATE_NAMES,
-                            PrefetchIterator(open_dataset(args.dataset)))
+        n, t0 = _run_frames(args, system, STATE_NAMES, frames)
         if args.use_async:
             system.finish()
     finally:

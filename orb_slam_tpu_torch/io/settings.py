@@ -1,4 +1,5 @@
-"""Settings files: the reference's flat schema (Data/Settings.yaml).
+"""Settings files: the reference's flat schema (Data/Settings.yaml), and
+ORB-SLAM2's monocular files (Examples/Monocular/*.yaml).
 
 Port of orb_slam_tpu/io/settings.py: `load_settings` (:15-26) and
 `slam_config_from_settings` (:29-53), returning the port's CameraModel
@@ -6,7 +7,14 @@ and ORBConfig; `settings_text` writes a configuration back in the same
 schema (chip_smoke.py and profile_paths.py build the Harris path from
 such a file). Keys: Camera.{fx,fy,cx,cy,k1,k2,p1,p2,width,height,fps,RGB},
 ORBextractor.{nFeatures,scaleFactor,nLevels,fastTh,nScoreType} and
-UseMotionModel; nScoreType 0 selects the Harris ranking.
+UseMotionModel; nScoreType 0 selects the Harris ranking. Beyond JAX, the
+port reads ORB-SLAM2's two FAST thresholds: `ORBextractor.iniThFAST`, the
+initial threshold where the file gives no `fastTh` (a file that gives
+both, with different values, raises), and `ORBextractor.minThFAST`, the
+lower one (`ORBConfig.fast_th_min`, 7 where the file gives none). Neither
+schema gives the frame size in every file (ORB-SLAM reads it from the
+images): the caller passes `width` and `height` for a file without
+`Camera.width` and `Camera.height` (cli.py passes the first image's).
 
 The JAX loader hands the text to PyYAML after dropping the "%YAML" and
 "---" lines and the "!!opencv-matrix" tags. This port reads the same flat
@@ -75,6 +83,12 @@ def slam_config_from_settings(path: str, width: int = 640, height: int = 480):
     are kept as float32, as the JAX CameraModel stores them."""
     raw = load_settings(path)
     g = lambda k, d: raw.get(k, d)
+    ini_th = g("ORBextractor.iniThFAST", 20)
+    fast_th = g("ORBextractor.fastTh", ini_th)
+    if "ORBextractor.iniThFAST" in raw and float(fast_th) != float(ini_th):
+        raise ValueError(f"{path}: ORBextractor.fastTh {fast_th} and "
+                         f"ORBextractor.iniThFAST {ini_th} disagree; both name "
+                         f"the initial FAST threshold")
     cam = CameraModel.create(
         fx=g("Camera.fx", 500.0), fy=g("Camera.fy", 500.0),
         cx=g("Camera.cx", width / 2), cy=g("Camera.cy", height / 2),
@@ -86,7 +100,8 @@ def slam_config_from_settings(path: str, width: int = 640, height: int = 480):
         n_features=int(g("ORBextractor.nFeatures", 1000)),
         scale_factor=float(g("ORBextractor.scaleFactor", 1.2)),
         n_levels=int(g("ORBextractor.nLevels", 8)),
-        fast_th_ini=float(g("ORBextractor.fastTh", 20)),
+        fast_th_ini=float(fast_th),
+        fast_th_min=float(g("ORBextractor.minThFAST", 7.0)),
         score_harris=int(g("ORBextractor.nScoreType", 1)) == 0,
     )
     extras = {
@@ -110,8 +125,9 @@ def _float_text(v) -> str:
 def settings_text(cam: CameraModel, orb: ORBConfig, fps: float = 30.0,
                   use_motion_model: bool = True) -> str:
     """The flat settings text that `slam_config_from_settings` reads back
-    as (cam, orb) (fast_th_min, edge_threshold, cell_size and the
-    descriptor options are not in the schema and keep their defaults)."""
+    as (cam, orb) in the reference's schema (fast_th_min, which only
+    ORB-SLAM2's files carry, edge_threshold, cell_size and the descriptor
+    options are not in it and keep their defaults)."""
     return "\n".join([
         "%YAML:1.0",
         f"Camera.fx: {_float_text(cam.fx)}", f"Camera.fy: {_float_text(cam.fy)}",

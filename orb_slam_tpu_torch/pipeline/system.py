@@ -52,9 +52,12 @@ only two children, a weak frame's `chunk.retrack` and a keyframe's
 `mapping.integrate` around each keyframe integration with its
 `mapping.insert`, `local_ba.sets` and `mapping.reclaim`; counters
 (`_count`) record each chunk's frames extracted and used and why it
-stopped, the frames through `process` and each integration's
-neighbours. Both live on the timer: with none installed a span is a
-`nullcontext` and a counter nothing, and neither reads the device.
+stopped, the frames through `process`, each integration's neighbours,
+and each tracked frame (`track.frames`) with its inliers
+(`track.inliers`), on the chunk's replay and on `_track` alike, from
+the counts the host reads anyway. Both live on the timer: with none
+installed a span is a `nullcontext` and a counter nothing, and neither
+reads the device.
 With SLAM_DEBUG set, local mapping logs its events through `utils/log.py`
 at JAX's sites (:1019-1164); a message that reads the device sits behind
 `if DEBUG:`, so without it the log adds no host sync. The threaded system
@@ -392,6 +395,7 @@ class SLAMSystem:
                 self._count("chunk.exit_weak")
                 return b + 1, poses_out
             self.state = WORKING
+            self._count_tracked(n_in)
             T_new = cposes[b]
             vis_sum += cvis[b]
             pids = cobs[b][cobs[b] >= 0]
@@ -697,6 +701,7 @@ class SLAMSystem:
             return None
 
         self.state = WORKING
+        self._count_tracked(n_in)
         T_new = res.pose.cpu().numpy()
         self._apply_counters(res)
         self._prev_frame = (frame, res.obs)
@@ -888,6 +893,11 @@ class SLAMSystem:
         count = getattr(self._stage_timer, "count", None)
         if count is not None:
             count(name, value)
+
+    def _count_tracked(self, n_inliers: int):
+        """Count one tracked frame and its inliers."""
+        self._count("track.frames")
+        self._count("track.inliers", n_inliers)
 
     def _covisible_neighbors(self, m, kf: int):
         """(W [K, K] as numpy, kf_valid as numpy, the live keyframes sharing

@@ -81,7 +81,10 @@ class StageTimer:
     order they began: (name, parent index or None, frame id, thread id,
     start, end), the clock `time.perf_counter()`; a stage or span given
     no frame id takes its parent's. `count(name, value)` appends a value
-    to `counters[name]`. Safe to share between threads."""
+    to `counters[name]`, a list that `times[name]` holds too (a counter
+    never shares a stage's or span's name), so a caller that hands the
+    timer its `times` reads the counters there beside the seconds. Safe
+    to share between threads."""
 
     def __init__(self, sync: bool = True, times: dict = None,
                  keep_spans: bool = False):
@@ -151,9 +154,12 @@ class StageTimer:
             self.times.setdefault(name, []).append(seconds)
 
     def count(self, name: str, value=1):
-        """Append `value` (one event's count) to `counters[name]`."""
+        """Append `value` (one event's count) to `counters[name]`, which
+        is `times[name]`."""
         with self._lock:
-            self.counters.setdefault(name, []).append(value)
+            if name not in self.counters:
+                self.counters[name] = self.times.setdefault(name, [])
+            self.counters[name].append(value)
 
     def summary(self) -> dict:
         return {

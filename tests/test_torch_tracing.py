@@ -8,9 +8,11 @@ a synchronizing timer; SLAMSystem falls back to the hook itself where it
 has no `span` (torch.profiler.record_function). Then a small
 `process_batch` run on the CPU (320x240 frames, 300 features, 4 levels,
 chunks of 4 from a map seeded with two keyframes), with and without a
-timer: the chunk counters add up to the frames handed over, the poses and
-the map are the same bit for bit, the timer adds no read of a tensor's
-value and the system no attribute a benchmark snapshot would copy.
+timer: the chunk counters add up to the frames handed over, the tracking
+counters to the frames given a pose (kept in the timer's `times` too),
+the poses and the map are the same bit for bit, the timer adds no read
+of a tensor's value and the system no attribute a benchmark snapshot
+would copy.
 """
 
 import threading
@@ -258,3 +260,13 @@ def test_the_timer_changes_no_pose_no_map_and_no_host_read(runs):
 def test_a_traced_system_snapshots_no_new_key(runs):
     assert set(seeding.snapshot(runs["traced"])) == runs["keys"]
     assert set(seeding.snapshot(runs["plain"])) == runs["keys"]
+
+
+def test_the_track_counters_count_every_tracked_frame(runs):
+    # one event per frame given a pose, chunk and single frames alike;
+    # the host-read count above holds with them on
+    c = runs["timer"].counters
+    tracked = sum(p is not None for p in runs["out"][1])
+    assert sum(c["track.frames"]) == len(c["track.inliers"]) == tracked
+    assert min(c["track.inliers"]) >= runs["traced"].cfg.min_track_inliers
+    assert runs["timer"].times["track.inliers"] is c["track.inliers"]
